@@ -10,12 +10,19 @@ Phases, each timed and printed:
               PyTorch twin on the card (max abs error vs the stated
               tolerance), with CUDA-event times and the least time the card
               could take for the same work;
-  4. slice    the point-only FrameBuilder -> Tracker step (configs/TUM1.yaml,
+  4. fast     the single-image FAST entry (ops/fast.py fast_with_fallback,
+              kernel B4) on 30 synthetic 640x480 frames, B4's launches
+              counted during exactly this run, held against the CPU path;
+  5. slice    the point-only FrameBuilder -> Tracker step (configs/TUM1.yaml,
               640x480) over 30 synthetic frames on the card: status per
               frame, ATE against ground truth, ms/frame, kernel launches
               counted during exactly this run, and the first frames held
-              against the port's plain CPU path.
-Then one JSON line with the kernels, and as the last line
+              against the port's plain CPU path;
+  6. slice-lines  the same for the point+line step (configs/TUM3.yaml, lines
+              on, device LSD, 640x480): also map lines and line inliers per
+              frame, and B3 fed valid line rows on every tracked frame.
+Then one JSON line with the kernels (launches: B1-B3 from slice-lines, B4
+from fast), and as the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
 failure exits non-zero; without CUDA the script exits non-zero at once.
 """
@@ -44,11 +51,13 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 #      sums in another order (the blur as cuBLAS float32 products), so values
 #      agree to a few float32 ulps of their magnitude (scores < 4096). The
 #      corner masks themselves must agree exactly (same differences).
+#  B4: B1's scores without the blur: the same tolerance and reason.
 #  B2: a copy: exact.
 #  B3: the same arithmetic reduced in another order (block tree vs matrix
 #      product) and solved by unpivoted vs pivoted LU: poses to 1e-4,
 #      at most 2 inlier flips at the chi2 boundary.
 TOL_B1 = 1e-2
+TOL_B4 = 1e-2
 TOL_B2 = 0.0
 TOL_B3_POSE = 1e-4
 TOL_B3_FLIPS = 2
@@ -106,6 +115,87 @@ def bound_ms(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def run_slice(name, settings, seq, frames, lines: bool):
+    """FrameBuilder -> Tracker.step over `frames` on the card, checked and
+    printed; -> the kernel launches counted during exactly this run."""
+    import torch
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.features.frame import FrameBuilder
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.pipeline.tracking import ST_OK, TEL_N_LN, TEL_STATUS, TEL_TRACKED, Tracker
+    from plslam_tpu_torch.solvers import pose as pose_mod
+
+    with Phase(name):
+        # warm-up on a throwaway tracker (cuBLAS handles, module loading)
+        builder = FrameBuilder(settings)
+        warm = Tracker(settings)
+        ws = warm.init_state()
+        for g, d, _ in frames[:2]:
+            ws, _ = warm.step(ws, builder(g, d))
+        del warm, ws
+        torch.cuda.synchronize()
+
+        tracker = Tracker(settings)
+        state = tracker.init_state()
+        b3 = pose_mod.pose_lm
+        wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, b3)
+        for w in wrappers:
+            w.launches = 0
+        b3.line_launches = b3.line_inliers = 0
+        b3.count_lines = lines
+        ms_frame, tel, poses, line_launches, line_inliers = [], [], [], [0], [0]
+        for g, d, _ in frames:
+            t0 = time.perf_counter()
+            state, out = tracker.step(state, builder(g, d))
+            torch.cuda.synchronize()
+            ms_frame.append((time.perf_counter() - t0) * 1e3)
+            tel.append(out.telemetry.cpu().numpy())
+            poses.append(out.Tcw.cpu().numpy().astype(np.float64))
+            line_launches.append(int(b3.line_launches))
+            line_inliers.append(int(b3.line_inliers))
+        launches = {w.__name__: w.launches for w in wrappers}
+        b3.count_lines = False
+
+        n = len(frames)
+        status = [int(t[TEL_STATUS]) for t in tel]
+        tracked = [bool(t[TEL_TRACKED]) for t in tel]
+        log("status per frame: " + " ".join(str(s) for s in status))
+        n_tracked = sum(tracked)
+        require(all(np.isfinite(T).all() and T.shape == (4, 4) for T in poses), "non-finite pose")
+        est = [(seq.timestamp(i), np.linalg.inv(T)) for i, T in enumerate(poses)]
+        ate, n_pairs = ate_rmse(est, seq.gt_trajectory())
+        log(f"tracked {n_tracked}/{n}; ATE RMSE {ate * 100:.4f} cm over {n_pairs} frames; "
+            f"median {statistics.median(ms_frame):.3f} ms/frame (first {ms_frame[0]:.3f} ms)")
+        log(f"launches during the run: {launches}")
+        require(n_tracked == n and all(s == ST_OK for s in status), "a frame was not tracked")
+        require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
+        require(launches["fast_blur_stack"] == n and launches["gather_patches"] == n,
+                "B1/B2 not launched once per frame")
+        require(launches["pose_lm"] >= n - 1, "B3 not launched on every tracked frame")
+        if lines:
+            fed = np.diff(line_launches)
+            inl = np.diff(line_inliers)
+            n_ln = [int(t[TEL_N_LN]) for t in tel]
+            log("map lines per frame: " + " ".join(map(str, n_ln)))
+            log("line inliers per frame: " + " ".join(map(str, inl)))
+            log("B3 launches with valid line rows per frame: " + " ".join(map(str, fed)))
+            require(n_ln[-1] > 0, "no map line at the end")
+            require(all(f >= 1 for f, t in zip(fed[1:], tracked[1:]) if t),
+                    "B3 not fed a valid line row on a tracked frame")
+
+        # the first frames against the port's plain CPU path
+        cb, ct = FrameBuilder(settings, device="cpu"), Tracker(settings, device="cpu")
+        cs = ct.init_state()
+        for i, (g, d, _) in enumerate(frames[:3]):
+            cs, cout = ct.step(cs, cb(g, d))
+            dt = float(np.abs(cout.Tcw.numpy() - poses[i]).max())
+            same = int(cout.telemetry[TEL_STATUS]) == status[i]
+            log(f"frame {i} vs CPU path: status equal {same}, |dTcw| {dt:.2e}")
+            require(same and dt < 1e-3, "card and CPU paths disagree")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -116,11 +206,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from plslam_tpu_torch import _build, load_settings
-    from plslam_tpu_torch.eval.ate import ate_rmse
-    from plslam_tpu_torch.features.frame import FrameBuilder
+    from plslam_tpu_torch import constants as C
     from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem
-    from plslam_tpu_torch.ops import brief, fast_cuda, patches, pyramid
-    from plslam_tpu_torch.pipeline.tracking import ST_OK, TEL_STATUS, TEL_TRACKED, Tracker
+    from plslam_tpu_torch.ops import brief, fast, fast_cuda, patches, pyramid
     from plslam_tpu_torch.solvers import pose as pose_mod
 
     dev = torch.device("cuda")
@@ -179,6 +267,35 @@ def main() -> int:
             name="fast_blur_stack", route="cuda", source="plslam_tpu_torch/csrc/fast_blur.cu",
             replaces="plslam_tpu/ops/fast_pallas.py:145", max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        )
+
+        # B4 on a real 640x480 frame and on an odd crop (ragged tiles at
+        # both edges); the single-image entry on the card against the CPU
+        err4, masks4 = 0.0, True
+        for img in (gray, gray[100:197, 200:331].contiguous()):
+            got4 = fast_cuda.fast_scores(img, ini, mn)
+            ref4 = fast_cuda.fast_scores_plain(img, ini, mn)
+            card = fast.fast_with_fallback(img, ini, mn, C.FAST_CELL, C.EDGE_THRESHOLD)
+            cpu = fast.fast_with_fallback(img.cpu(), ini, mn, C.FAST_CELL, C.EDGE_THRESHOLD)
+            torch.cuda.synchronize()
+            e = max(float((a - b).abs().max()) for a, b in zip(got4, ref4))
+            eq = all(bool(torch.equal(a > 0, b > 0)) for a, b in zip(got4, ref4))
+            eq_entry = bool(torch.equal(card.cpu() > 0, cpu > 0))
+            log(f"B4 fast_scores {tuple(img.shape)}: max_abs_err {e:.3e} (tol {TOL_B4}), corner masks equal {eq}, "
+                f"fast_with_fallback card vs CPU masks equal {eq_entry} ({int((cpu > 0).sum())} corners)")
+            err4, masks4 = max(err4, e), masks4 and eq and eq_entry
+        require(err4 <= TOL_B4 and masks4, "B4 disagrees with its plain twin")
+        ms4 = cuda_ms(torch, lambda: fast_cuda.fast_scores(gray, ini, mn))
+        plain4 = cuda_ms(torch, lambda: fast_cuda.fast_scores_plain(gray, ini, mn))
+        # one read of the image, two writes; per pixel 16 ring differences,
+        # per threshold 16 x (2 sub, 2 max, 2 add, 2 compare), 4 selects
+        b_ms4, b_by4 = bound_ms(3 * 4 * gray.numel(), 276 * gray.numel())
+        log(f"B4 fast_scores: {ms4:.4f} ms, plain {plain4:.4f} ms, bound {b_ms4:.4f} ms ({b_by4}), "
+            f"library call: none")
+        kernels["fast_scores"] = dict(
+            name="fast_scores", route="cuda", source="plslam_tpu_torch/csrc/fast_blur.cu",
+            replaces="plslam_tpu/ops/fast_pallas.py:48", max_abs_err=err4, ms=ms4, plain_ms=plain4,
+            bound_ms=b_ms4, bound_by=b_by4, library_ms=None,
         )
 
         # B2 at K = 1000 centres on the blurred stack
@@ -272,67 +389,39 @@ def main() -> int:
             bound_ms=b_ms3, bound_by=b_by3, library_ms=None,
         )
 
-    with Phase("slice"):
-        # warm-up on a throwaway tracker (cuBLAS handles, module loading)
-        builder = FrameBuilder(settings)
-        warm = Tracker(settings)
-        ws = warm.init_state()
-        for g, d, _ in frames[:2]:
-            ws, _ = warm.step(ws, builder(g, d))
-        del warm, ws
+    with Phase("fast"):
+        # the single-image FAST entry on every frame: B4 and the tail
+        fast_cuda.fast_scores.launches = 0
+        maps = [fast.fast_with_fallback(torch.from_numpy(g).to(dev), ini, mn, C.FAST_CELL, C.EDGE_THRESHOLD)
+                for g, _, _ in frames]
         torch.cuda.synchronize()
+        n4 = fast_cuda.fast_scores.launches
+        n_corners = [int((m > 0).sum()) for m in maps]
+        log(f"B4 launches during the run: {n4} for {N_FRAMES} frames; corners per frame "
+            f"{min(n_corners)}..{max(n_corners)}")
+        require(n4 == N_FRAMES, "B4 not launched once per frame")
+        require(all(m.shape == (H, W) and bool(torch.isfinite(m).all()) for m in maps) and min(n_corners) > 100,
+                "bad FAST score maps")
+        cpu0 = fast.fast_with_fallback(torch.from_numpy(frames[0][0]), ini, mn, C.FAST_CELL, C.EDGE_THRESHOLD)
+        require(torch.equal(maps[0].cpu() > 0, cpu0 > 0), "FAST entry: card and CPU maps disagree")
+        kernels["fast_scores"]["launches"] = n4
 
-        tracker = Tracker(settings)
-        state = tracker.init_state()
-        wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
-        for w in wrappers:
-            w.launches = 0
-        ms_frame, tel, poses = [], [], []
-        for i, (g, d, _) in enumerate(frames):
-            t0 = time.perf_counter()
-            state, out = tracker.step(state, builder(g, d))
-            torch.cuda.synchronize()
-            ms_frame.append((time.perf_counter() - t0) * 1e3)
-            tel.append(out.telemetry.cpu().numpy())
-            poses.append(out.Tcw.cpu().numpy().astype(np.float64))
-        launches = {w.__name__: w.launches for w in wrappers}
-
-        status = [int(t[TEL_STATUS]) for t in tel]
-        tracked = [bool(t[TEL_TRACKED]) for t in tel]
-        log("status per frame: " + " ".join(str(s) for s in status))
-        n_tracked = sum(tracked)
-        require(all(np.isfinite(T).all() and T.shape == (4, 4) for T in poses), "non-finite pose")
-        est = [(seq.timestamp(i), np.linalg.inv(T)) for i, T in enumerate(poses)]
-        ate, n_pairs = ate_rmse(est, seq.gt_trajectory())
-        log(f"tracked {n_tracked}/{N_FRAMES}; ATE RMSE {ate * 100:.4f} cm over {n_pairs} frames; "
-            f"median {statistics.median(ms_frame):.3f} ms/frame (first {ms_frame[0]:.3f} ms)")
-        log(f"launches during the slice: {launches}")
-        require(n_tracked == N_FRAMES and all(s == ST_OK for s in status), "a frame was not tracked")
-        require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
-        require(launches["fast_blur_stack"] == N_FRAMES and launches["gather_patches"] == N_FRAMES,
-                "B1/B2 not launched once per frame")
-        require(launches["pose_lm"] >= N_FRAMES - 1, "B3 not launched on every tracked frame")
-
-        # the first frames against the port's plain CPU path
-        n_ref = 3
-        cb, ct = FrameBuilder(settings, device="cpu"), Tracker(settings, device="cpu")
-        cs = ct.init_state()
-        for i, (g, d, _) in enumerate(frames[:n_ref]):
-            cf = cb(g, d)
-            cs, cout = ct.step(cs, cf)
-            dt = float(np.abs(cout.Tcw.numpy() - poses[i]).max())
-            same = int(cout.telemetry[TEL_STATUS]) == status[i]
-            log(f"frame {i} vs CPU path: status equal {same}, |dTcw| {dt:.2e}")
-            require(same and dt < 1e-3, "card and CPU paths disagree")
-        for w in wrappers:
-            kernels[w.__name__]["launches"] = launches[w.__name__]
+    run_slice("slice", settings, seq, frames, lines=False)
+    lines_settings = load_settings(ROOT / "configs" / "TUM3.yaml")
+    require(lines_settings.use_lines and lines_settings.line_backend == "device", "TUM3 should run device lines")
+    lseq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=lines_settings)
+    launches = run_slice("slice-lines", lines_settings, lseq, [lseq.frame(i) for i in range(N_FRAMES)], lines=True)
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {BUDGET_S:.0f} s)")
     require(total <= BUDGET_S, "over the wall-clock budget")
-    print(json.dumps({"kernels": [{k: kernels[n][k] for k in order} for n in kernels]}), flush=True)
+    names = ["fast_blur_stack", "gather_patches", "pose_lm", "fast_scores"]  # B1-B4
+    require(sorted(names) == sorted(kernels), "a kernel is missing from the run")
+    print(json.dumps({"kernels": [{k: kernels[n][k] for k in order} for n in names]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -36,6 +36,8 @@ F = ctypes.c_float
 _SIGNATURES = {
     # stack, hi, lo, blur, L, H, W, th_hi, th_lo, live_h*, live_w*, gauss7*, stream
     "plslam_fast_blur_stack": [P, P, P, P, I, I, I, F, F, P, P, P, P],
+    # img, hi, lo, H, W, th_hi, th_lo, stream
+    "plslam_fast_scores": [P, P, P, I, I, F, F, P],
     # img, yx, out, H, W, K, size, stream
     "plslam_gather_patches": [P, P, P, I, I, I, I, P],
     # Tcw0, xw, obs, isig, stereo, valid, N, sw, ew, l2d, isig_l, lvalid, L,

@@ -1,10 +1,13 @@
-"""Per-frame observation container + builder (point half).
+"""Per-frame observation container + builder (points and lines).
 
-Port of plslam_tpu/features/frame.py for point-only configurations
-(`UseLines: 0`, as configs/TUM1.yaml): ORB extraction, keypoint undistortion, depth
-lookup and the virtual right coordinate u_r = u - bf/d. The line fields
-keep their fixed capacity and are all invalid; line detection and LBD are
-a later slice.
+Port of plslam_tpu/features/frame.py: ORB extraction, keypoint
+undistortion, depth lookup and the virtual right coordinate u_r = u - bf/d;
+with lines on (`UseLines`, default 1, `line_backend: "device"`), dense LSD
+on the image (ops/lsd_device.py), LBD on the full-resolution gradients
+(ops/lbd.py), endpoint undistortion, the normalised 2-D line, the segment
+angle and endpoint depths. With lines off, every line slot is invalid
+and the line fields are the same each frame: the builder computes them
+once, as the reference computes them from empty lines.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from plslam_tpu_torch import constants as C
 from plslam_tpu_torch.config import Settings
 from plslam_tpu_torch.features.orb import ORBExtractor
 from plslam_tpu_torch.geometry import camera
-from plslam_tpu_torch.ops import brief
+from plslam_tpu_torch.ops import brief, lbd, lsd_device
 from plslam_tpu_torch.utils.device import resolve_device
 
 
@@ -54,8 +57,10 @@ class FrameBuilder:
         line_capacity: int = C.MAX_LINES,
         device="cuda",
     ):
-        if settings.use_lines:
-            raise NotImplementedError("the port covers point-only settings (UseLines: 0) so far")
+        if settings.use_lines and settings.line_backend != "device":
+            raise NotImplementedError(
+                f"line_backend {settings.line_backend!r}: the port detects lines on the device only; "
+                "the host LSD (native/lsd.cpp) is not ported yet")
         self.s = settings
         self.device = resolve_device(device)
         self.extractor = ORBExtractor(
@@ -74,6 +79,12 @@ class FrameBuilder:
         self.has_dist = bool((dist != 0).any())
         self.bf = float(settings.bf)
         self.line_capacity = line_capacity
+        if not settings.use_lines:
+            # every keyline invalid: the line fields are the same each frame
+            L = line_capacity
+            z = torch.zeros((L, 2), dtype=torch.float32, device=self.device)
+            plane = torch.zeros((settings.height, settings.width), dtype=torch.float32, device=self.device)
+            self._no_lines = self._lines(plane, plane, z, z, torch.zeros(L, dtype=torch.bool, device=self.device))
 
     def _undistort(self, uv):
         return camera.undistort_pixels(self.K, self.dist, uv) if self.has_dist else uv
@@ -84,6 +95,32 @@ class FrameBuilder:
         yi = torch.clamp(torch.round(uv[..., 1]).long(), 0, Hd - 1)
         d = depth.reshape(-1)[yi * Wd + xi]
         return torch.where(valid & (d > 0) & torch.isfinite(d), d, 0.0)
+
+    def _lines(self, gray, depth, sp_raw, ep_raw, ln_valid) -> dict:
+        """The line fields of FrameData from raw keyline endpoints: LBD on
+        the full-resolution gradients, endpoint undistortion (padded rows
+        take the stand-ins 0 and 1, which keep the segment non-degenerate),
+        the normalised 2-D line, the segment angle and endpoint depths."""
+        gx, gy = lbd.image_gradients(gray)
+        ln_desc = lbd.lbd_descriptor(gx, gy, sp_raw, ep_raw, ln_valid)
+        sp_und = self._undistort(torch.where(ln_valid[:, None], sp_raw, 0.0))
+        ep_und = self._undistort(torch.where(ln_valid[:, None], ep_raw, 1.0))
+        seg = ep_und - sp_und
+        # cross((sp, 1), (ep, 1)), normalised so that a^2 + b^2 = 1
+        line2d = torch.stack([sp_und[:, 1] - ep_und[:, 1], ep_und[:, 0] - sp_und[:, 0],
+                              sp_und[:, 0] * ep_und[:, 1] - sp_und[:, 1] * ep_und[:, 0]], -1)
+        nrm = torch.sqrt(torch.sum(line2d[:, :2] * line2d[:, :2], -1, keepdim=True))
+        return dict(
+            ln_sp=sp_und,
+            ln_ep=ep_und,
+            ln_line2d=line2d / torch.clamp(nrm, min=1e-6),
+            ln_angle=torch.atan2(seg[:, 1], seg[:, 0]),
+            ln_depth_sp=self._depth_at(depth, sp_raw, ln_valid),
+            ln_depth_ep=self._depth_at(depth, ep_raw, ln_valid),
+            ln_desc=ln_desc,
+            ln_pm1=brief.unpack_bits_pm1(ln_desc),
+            ln_valid=ln_valid,
+        )
 
     def _as_tensor(self, a):
         if isinstance(a, np.ndarray):
@@ -102,8 +139,11 @@ class FrameBuilder:
         # depth at the raw (pre-undistortion) position, as the reference
         d = self._depth_at(depth, uv_raw, fs.valid)
         ur = torch.where(d > 0, uv_und[:, 0] - self.bf / torch.where(d > 0, d, 1.0), -1.0)
-        L = self.line_capacity
-        f32 = dict(dtype=torch.float32, device=self.device)
+
+        if self.s.use_lines:
+            lines = self._lines(gray, depth, *lsd_device.detect_lines_device(gray, self.line_capacity))
+        else:
+            lines = self._no_lines
         return FrameData(
             uvr=torch.cat([uv_und, ur[:, None]], -1),
             uv_raw=uv_raw,
@@ -113,13 +153,5 @@ class FrameBuilder:
             desc=fs.desc,
             pm1=brief.unpack_bits_pm1(fs.desc),
             valid=fs.valid,
-            ln_sp=torch.zeros((L, 2), **f32),
-            ln_ep=torch.zeros((L, 2), **f32),
-            ln_line2d=torch.zeros((L, 3), **f32),
-            ln_angle=torch.zeros(L, **f32),
-            ln_depth_sp=torch.zeros(L, **f32),
-            ln_depth_ep=torch.zeros(L, **f32),
-            ln_desc=torch.zeros((L, 32), dtype=torch.uint8, device=self.device),
-            ln_pm1=torch.zeros((L, brief.N_BITS), **f32),
-            ln_valid=torch.zeros(L, dtype=torch.bool, device=self.device),
+            **lines,
         )

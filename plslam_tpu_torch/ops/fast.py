@@ -1,8 +1,10 @@
 """FAST-9/16 scores, 3x3 NMS and the per-cell fallback / border tail.
 
 Port of plslam_tpu/ops/fast.py. `fast_scores` is the plain twin of the
-scoring half of kernel B1 (ops/fast_cuda.py); the NMS / fallback / border
-tail stays PyTorch code, as it stayed XLA code beside the TPU kernel.
+scoring half of kernels B1 and B4 (ops/fast_cuda.py); the NMS / fallback /
+border tail stays PyTorch code, as it stayed XLA code beside the TPU
+kernel. `fast_with_fallback` is the single-image entry: B4 on a CUDA
+image, the plain scores on a CPU one, then the same tail.
 
 Corner test: 16-pixel Bresenham ring of radius 3; a corner has >= 9
 contiguous ring pixels all brighter than p + t or all darker than p - t.
@@ -89,15 +91,33 @@ def _inside_mask(level_hw, H: int, W: int, border: int, device: str):
     return m.to(device)
 
 
+def _cell_fallback(s_hi, s_lo, cell: int):
+    """Cells of s_hi [..., H, W] with no corner take s_lo's scores."""
+    H, W = s_hi.shape[-2:]
+    ch, cw = -(-H // cell), -(-W // cell)
+    hi_p = F.pad(s_hi, (0, cw * cell - W, 0, ch * cell - H))
+    cell_has = hi_p.unflatten(-2, (ch, cell)).unflatten(-1, (cw, cell)).amax(dim=(-3, -1)) > 0.0
+    full = cell_has.repeat_interleave(cell, -2).repeat_interleave(cell, -1)[..., :H, :W]
+    return torch.where(full, s_hi, s_lo)
+
+
+def fast_with_fallback(img, ini_th: float, min_th: float, cell: int, border: int):
+    """Dense score map of one image f32[H, W]: dual-threshold scores (kernel
+    B4 on the card), per-cell fallback, 3x3 NMS, border masking."""
+    from plslam_tpu_torch.ops import fast_cuda  # it imports this module
+
+    s_hi, s_lo = fast_cuda.fast_scores(img, ini_th, min_th)
+    score = nms3(_cell_fallback(s_hi, s_lo, cell))
+    H, W = img.shape
+    inside = _inside_mask(((H, W),), H, W, border, str(img.device))[0]
+    return torch.where(inside, score, 0.0)
+
+
 def fallback_nms_border_stack(s_hi, s_lo, level_hw, cell: int, border: int):
     """Per-cell threshold fallback (cells without a corner at the high
     threshold use the low one), 3x3 NMS, and per-level border masking on a
     [L, H, W] pyramid stack (level l's true extent is level_hw[l])."""
-    L, H, W = s_hi.shape
-    ch, cw = -(-H // cell), -(-W // cell)
-    hi_p = F.pad(s_hi, (0, cw * cell - W, 0, ch * cell - H))
-    cell_has = hi_p.reshape(L, ch, cell, cw, cell).amax(dim=(2, 4)) > 0.0
-    full = cell_has.repeat_interleave(cell, 1).repeat_interleave(cell, 2)[:, :H, :W]
-    score = nms3(torch.where(full, s_hi, s_lo))
+    H, W = s_hi.shape[-2:]
+    score = nms3(_cell_fallback(s_hi, s_lo, cell))
     inside = _inside_mask(tuple(map(tuple, level_hw)), H, W, border, str(s_hi.device))
     return torch.where(inside, score, 0.0)

@@ -1,5 +1,6 @@
 """Kernel B1: FAST-9/16 scores at two thresholds + 7x7 Gaussian blur of
-the whole pyramid stack, from one read of each pixel.
+the whole pyramid stack, from one read of each pixel; and kernel B4, its
+single-image form without the blur.
 
 Replaces `_band_kernel_stack` (plslam_tpu/ops/fast_pallas.py:145, launched
 by `fast_scores_pallas_stack`, used at plslam_tpu/features/orb.py:106-116).
@@ -15,6 +16,11 @@ rounded up to the FAST fallback cell (32 px): every cell that holds a real
 pixel is computed in full, so the per-cell fallback downstream sees exactly
 what it sees on the full plane, and the zeroed region holds no pixel that
 survives the border mask.
+
+B4 (`fast_scores`) replaces `_band_kernel` (plslam_tpu/ops/fast_pallas.py:48,
+launched by `fast_scores_pallas` at :87): the same CUDA kernel instantiated
+without the blur, on one f32[H, W] image with every tile live. Bound by one
+read and two writes, 3.7 MB at 480 x 640, ~1.1 us at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -85,3 +91,32 @@ def fast_blur_stack(stack, level_hw, ini_th: float, min_th: float):
 
 
 fast_blur_stack.launches = 0
+
+
+def fast_scores_plain(img, ini_th: float, min_th: float):
+    """Plain PyTorch twin of B4: (s_hi, s_lo), each f32[H, W]."""
+    return fast.fast_scores(img, ini_th), fast.fast_scores(img, min_th)
+
+
+def fast_scores(img, ini_th: float, min_th: float):
+    """B4 on a CUDA image; the plain twin for a CPU image."""
+    if img.device.type == "cpu":
+        return fast_scores_plain(img, ini_th, min_th)
+    from plslam_tpu_torch import _build
+
+    if img.device.type != "cuda" or img.dtype != torch.float32 or img.ndim != 2:
+        raise ValueError(f"fast_scores wants a CUDA f32[H, W], got {img.dtype} "
+                         f"{tuple(img.shape)} on {img.device}")
+    img = img.contiguous()
+    hi, lo = torch.empty_like(img), torch.empty_like(img)
+    H, W = img.shape
+    rc = _build.library().plslam_fast_scores(
+        img.data_ptr(), hi.data_ptr(), lo.data_ptr(), H, W, float(ini_th), float(min_th),
+        torch.cuda.current_stream(img.device).cuda_stream,
+    )
+    _build.check(rc, "fast_scores")
+    fast_scores.launches += 1
+    return hi, lo
+
+
+fast_scores.launches = 0

@@ -1,11 +1,12 @@
 """The tracking front end: one step per frame over (TrackState, FrameData).
 
-Port of plslam_tpu/pipeline/tracking.py for point-only configurations
-(configs/TUM1.yaml, `UseLines: 0`): stereo initialisation from depth, motion-model
-projection matching + pose LM (kernel B3), the TrackReferenceKeyFrame
-fallback, TrackLocalMap over the covisibility working set + a second pose
-LM, the keyframe decision, and masked in-step keyframe / landmark
-insertion. State is fixed-capacity and mask-driven like the reference's.
+Port of plslam_tpu/pipeline/tracking.py: stereo initialisation from
+depth, motion-model projection matching + pose LM (kernel B3), the
+TrackReferenceKeyFrame fallback, TrackLocalMap over the covisibility
+working set, map-line matching by projection, the joint point+line pose LM
+(B3 with line rows), the keyframe decision, and masked in-step keyframe /
+landmark / map-line insertion. State is fixed-capacity and mask-driven
+like the reference's.
 
 Differences in mechanism (results are the reference's):
   * The reference's `lax.cond`s: the ref-KF fallback (tracking.py:700) is
@@ -17,6 +18,9 @@ Differences in mechanism (results are the reference's):
     among duplicate targets the last source row wins, as on the
     reference's CPU backend.
   * `jnp.nonzero(size=...)` becomes a cumsum compaction (no host sync).
+  * Point-only settings (`UseLines: 0`) skip line matching, the line rows
+    of the joint solve and map-line insertion: no keyline is ever valid
+    there, so the reference's line work changes nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from plslam_tpu_torch.config import Settings
 from plslam_tpu_torch.features.frame import FrameData
 from plslam_tpu_torch.features.orb import inv_sigma2_table
 from plslam_tpu_torch.geometry import camera, se3
+from plslam_tpu_torch.matching import lines as line_ops
 from plslam_tpu_torch.matching import points as match_ops
 from plslam_tpu_torch.ops import brief
 from plslam_tpu_torch.slammap.state import MapState, empty_map, refresh_counts
@@ -101,6 +106,7 @@ class _BranchOut(NamedTuple):
 
     do_insert: torch.Tensor  # bool[]
     lm_of_kp: torch.Tensor  # i32[N]
+    ml_of_ln: torch.Tensor  # i32[L] map-line binding per keyline
     Tcw: torch.Tensor  # f32[4, 4]
     last_Tcw: torch.Tensor  # f32[4, 4]
     update_last: torch.Tensor  # bool[]
@@ -114,6 +120,7 @@ class _BranchOut(NamedTuple):
     count_counters: torch.Tensor  # bool[]
     vis_ws: torch.Tensor  # bool[WS]
     already: torch.Tensor  # bool[P]
+    ml_vis: torch.Tensor  # bool[Q] projected map-line visibility
 
 
 def _drop_target(idx, n):
@@ -168,7 +175,7 @@ def _norm(x):
 
 
 class Tracker:
-    """Static-config point-only tracking pipeline. Use init_state() and step()."""
+    """Static-config tracking pipeline. Use init_state() and step()."""
 
     def __init__(
         self,
@@ -180,8 +187,6 @@ class Tracker:
         max_maplines: int = C.MAX_MAPLINES,
         device="cuda",
     ):
-        if settings.use_lines:
-            raise NotImplementedError("the port covers point-only settings (UseLines: 0) so far")
         self.s = settings
         self.device = resolve_device(device)
         K, _ = settings.intrinsics()
@@ -231,8 +236,8 @@ class Tracker:
         )
 
     # --------------------------------------------------------- map insert
-    def _insert_keyframe(self, m: MapState, frame: FrameData, Tcw, lm_of_kp, do, frame_id):
-        """Masked KeyFrame + MapPoint creation (CreateNewKeyFrame /
+    def _insert_keyframe(self, m: MapState, frame: FrameData, Tcw, lm_of_kp, ml_of_ln, do, frame_id):
+        """Masked KeyFrame + MapPoint / MapLine creation (CreateNewKeyFrame /
         StereoInitialization) into the first free slots."""
         N, P = self.max_feat, self.max_pts
         do = do & torch.any(~m.kf_valid)
@@ -276,18 +281,26 @@ class Tracker:
             pt_replaced=set_drop(m.pt_replaced, scatter_id, -1),
         )
 
-        # keyframe row; point-only frames carry no valid keyline, so the line
-        # map is untouched and the row's line slots are all invalid
-        row_lm = torch.where(promote, new_id, torch.where(do, lm_of_kp, -1))
-        matched = do & frame.valid & (lm_of_kp >= 0)
-        no_ln = torch.full((self.max_lines,), -1, dtype=torch.int32, device=self.device)
+        # new map lines: unmatched keylines with both endpoint depths in
+        # the close range, into the first free slots; matched map lines gain
+        # the observation (point-only settings have no valid keyline)
+        L = self.max_lines
+        row_ln = torch.full((L,), -1, dtype=torch.int32, device=self.device)
+        if self.s.use_lines:
+            m, row_ln = self._insert_lines(m, frame, Twc, cam_center, ml_of_ln, do, k)
         m = m._replace(
             kf_ln_obs=set_row(m.kf_ln_obs, k, frame.ln_line2d, do),
-            kf_ln_idx=set_row(m.kf_ln_idx, k, no_ln, do),
+            kf_ln_idx=set_row(m.kf_ln_idx, k, row_ln, do),
             kf_ln_valid=set_row(m.kf_ln_valid, k, frame.ln_valid, do),
             kf_ln_desc=set_row(m.kf_ln_desc, k, frame.ln_desc, do),
             kf_ln_sp=set_row(m.kf_ln_sp, k, frame.ln_sp, do),
             kf_ln_ep=set_row(m.kf_ln_ep, k, frame.ln_ep, do),
+        )
+
+        # keyframe row
+        row_lm = torch.where(promote, new_id, torch.where(do, lm_of_kp, -1))
+        matched = do & frame.valid & (lm_of_kp >= 0)
+        m = m._replace(
             kf_pose=set_row(m.kf_pose, k, Tcw, do),
             kf_valid=set_row(m.kf_valid, k, self._scalar(True, torch.bool), do),
             kf_frame_id=set_row(m.kf_frame_id, k, frame_id, do),
@@ -306,6 +319,50 @@ class Tracker:
             pt_desc=set_drop(m.pt_desc, torch.where(matched, lm_of_kp, P), frame.desc),
         )
         return refresh_counts(m), row_lm, k, do
+
+    def _insert_lines(self, m: MapState, frame: FrameData, Twc, cam_center, ml_of_ln, do, k):
+        """MapLine creation for a keyframe insert: unmatched keylines with
+        both endpoint depths in the close range go to the first free slots;
+        matched map lines count the observation and take the newest
+        descriptor. -> (map, the keyframe row's map line per keyline)."""
+        L, Q = self.max_lines, self.max_maplines
+        ln_cand = (frame.ln_valid & (frame.ln_depth_sp > 0) & (frame.ln_depth_ep > 0)
+                   & (frame.ln_depth_sp < self.depth_th) & (frame.ln_depth_ep < self.depth_th)
+                   & (ml_of_ln < 0) & do)
+        ln_pos_new = torch.cumsum(ln_cand.to(torch.int32), 0) - 1
+        ln_free_order = torch.argsort(m.ln_valid.to(torch.int8), stable=True)  # free slots first
+        ln_cand &= ln_pos_new < torch.sum(~m.ln_valid)
+        ln_new_id = ln_free_order[torch.clamp(ln_pos_new, min=0).long()].to(torch.int32)
+        ln_scatter = torch.where(ln_cand, ln_new_id, Q)
+        sw_w = se3.transform(Twc, camera.backproject(self.K, frame.ln_sp, frame.ln_depth_sp))
+        ew_w = se3.transform(Twc, camera.backproject(self.K, frame.ln_ep, frame.ln_depth_ep))
+        # viewing normal and distance band at the midpoint (lines are
+        # detected on level 0: the band spans the whole pyramid)
+        ln_dvec = 0.5 * (sw_w + ew_w) - cam_center
+        ln_d = _norm(ln_dvec)
+        ln_normal = ln_dvec / torch.clamp(ln_d, min=1e-6)[:, None]
+        ln_dmin = ln_d / float(self.s.scale_factor ** (self.n_levels - 1))
+        m = m._replace(
+            ln_sw=set_drop(m.ln_sw, ln_scatter, sw_w),
+            ln_ew=set_drop(m.ln_ew, ln_scatter, ew_w),
+            ln_normal=set_drop(m.ln_normal, ln_scatter, ln_normal),
+            ln_dist=set_drop(m.ln_dist, ln_scatter, torch.stack([ln_dmin, ln_d], -1)),
+            ln_desc=set_drop(m.ln_desc, ln_scatter, frame.ln_desc),
+            ln_valid=set_drop(m.ln_valid, ln_scatter, True),
+            ln_ref_kf=set_drop(m.ln_ref_kf, ln_scatter, k.expand(L)),
+            ln_first_kf=set_drop(m.ln_first_kf, ln_scatter, k.expand(L)),
+            ln_first_seq=set_drop(m.ln_first_seq, ln_scatter, m.next_kf_seq.expand(L)),
+            ln_nobs=set_drop(m.ln_nobs, ln_scatter, 2),
+            ln_visible=set_drop(m.ln_visible, ln_scatter, 1.0),
+            ln_found=set_drop(m.ln_found, ln_scatter, 1.0),
+        )
+        row_ln = torch.where(ln_cand, ln_new_id, torch.where(do, ml_of_ln, -1))
+        ln_matched = torch.where(do & frame.ln_valid & (ml_of_ln >= 0), ml_of_ln, Q)
+        m = m._replace(
+            ln_nobs=add_drop(m.ln_nobs, ln_matched, 2),
+            ln_desc=set_drop(m.ln_desc, ln_matched, frame.ln_desc),
+        )
+        return m, row_ln
 
     # ---------------------------------------------------------- local set
     def _compute_local_set(self, m: MapState, k):
@@ -352,6 +409,25 @@ class Tracker:
         pred_oct = torch.clamp(torch.ceil(torch.log(ratio) / self.log_scale).to(torch.int32), 0, self.n_levels - 1)
         return uv, pred_oct, vis, view_cos
 
+    def _project_lines(self, m: MapState, Tcw):
+        """Project map-line endpoints -> (mid [Q, 2], angle [Q], vis [Q]):
+        frustum, viewing-angle and midpoint distance-band gates."""
+        sp_c = se3.transform(Tcw, m.ln_sw)
+        ep_c = se3.transform(Tcw, m.ln_ew)
+        sp_uv = camera.project(self.K, sp_c)
+        ep_uv = camera.project(self.K, ep_c)
+        mid = 0.5 * (sp_uv + ep_uv)
+        seg = ep_uv - sp_uv
+        ang = torch.atan2(seg[:, 1], seg[:, 0])
+        cam_center = se3.translation(se3.inverse(Tcw))
+        dvec = 0.5 * (m.ln_sw + m.ln_ew) - cam_center
+        dist = _norm(dvec)
+        in_band = (dist >= 0.8 * m.ln_dist[:, 0]) & (dist <= 1.2 * m.ln_dist[:, 1])
+        view_cos = torch.sum(dvec * m.ln_normal, -1) / torch.clamp(dist, min=1e-6)
+        vis = (m.ln_valid & (sp_c[:, 2] > 0.05) & (ep_c[:, 2] > 0.05)
+               & camera.in_image(mid, self.width, self.height) & in_band & (view_cos > 0.5))
+        return mid, ang, vis
+
     # --------------------------------------------------------- pose solve
     def _point_obs(self, frame: FrameData, xw, valid):
         return PointObs(
@@ -377,6 +453,7 @@ class Tracker:
         return _BranchOut(
             do_insert=enough,
             lm_of_kp=torch.full((self.max_feat,), -1, dtype=torch.int32, device=self.device),
+            ml_of_ln=torch.full((self.max_lines,), -1, dtype=torch.int32, device=self.device),
             Tcw=I, last_Tcw=I, update_last=self._scalar(True, torch.bool),
             status=torch.where(enough, ST_OK, ST_UNINIT).to(torch.int32),
             tracked=enough, velocity=ts.velocity, vel_ok=self._scalar(False, torch.bool),
@@ -384,6 +461,7 @@ class Tracker:
             count_counters=self._scalar(False, torch.bool),
             vis_ws=torch.zeros(self.ws_cap, dtype=torch.bool, device=self.device),
             already=torch.zeros(self.max_pts, dtype=torch.bool, device=self.device),
+            ml_vis=torch.zeros(self.max_maplines, dtype=torch.bool, device=self.device),
         )
 
     def _do_track(self, ts: TrackState, frame: FrameData) -> _BranchOut:
@@ -468,23 +546,39 @@ class Tracker:
         lm_of_kp = set_drop(lm_of_kp, torch.where(match_kp2 >= 0, match_kp2, N), torch.where(match_kp2 >= 0, ws, -1))
         n2 = torch.sum(lm_of_kp >= 0).to(torch.int32)
 
-        # ---- 2c. joint refinement; point-only frames bring no valid line
-        L = self.max_lines
-        no_lines = LineObs(
-            sw=torch.zeros((L, 3), dtype=torch.float32, device=dev),
-            ew=torch.zeros((L, 3), dtype=torch.float32, device=dev),
-            line2d=frame.ln_line2d,
-            inv_sigma2=torch.ones(L, dtype=torch.float32, device=dev),
-            valid=torch.zeros_like(frame.ln_valid),
-        )
+        # ---- 2b. map-line matching (LSDmatcher::SearchByProjection);
+        # skipped for point-only settings, where no keyline is ever valid
+        # and so no map line exists
+        L, Q = self.max_lines, self.max_maplines
+        ml_of_ln = torch.full((L,), -1, dtype=torch.int32, device=dev)
+        ml_vis = torch.zeros(Q, dtype=torch.bool, device=dev)
+        lines = None
+        if self.s.use_lines:
+            ml_mid, ml_ang, ml_vis = self._project_lines(m, Tcw1)
+            match_ln, _ = line_ops.search_lines_by_projection(
+                0.5 * (frame.ln_sp + frame.ln_ep), frame.ln_angle, frame.ln_pm1, frame.ln_valid,
+                ml_mid, ml_ang, brief.unpack_bits_pm1(m.ln_desc), ml_vis,
+            )
+            ml_of_ln = set_drop(ml_of_ln, torch.where(match_ln >= 0, match_ln, L),
+                                torch.where(match_ln >= 0, torch.arange(Q, dtype=torch.int32, device=dev), -1))
+            mlc = torch.clamp(ml_of_ln, min=0).long()
+            lines = LineObs(sw=m.ln_sw[mlc], ew=m.ln_ew[mlc], line2d=frame.ln_line2d,
+                            inv_sigma2=torch.ones(L, dtype=torch.float32, device=dev),
+                            valid=(ml_of_ln >= 0) & frame.ln_valid)
+
+        # ---- 2c. joint point+line refinement
         has2 = frame.valid & (lm_of_kp >= 0)
-        Tcw2, inl2, _ = pose_optimization(
+        Tcw2, inl2, inl_ln = pose_optimization(
             Tcw1, self._point_obs(frame, m.pt_pos[torch.clamp(lm_of_kp, min=0).long()], has2),
-            self.K_host, self.bf, lines=no_lines,
+            self.K_host, self.bf, lines=lines,
         )
         lm_of_kp = torch.where(inl2 & has2, lm_of_kp, -1)
+        if lines is not None:
+            ml_of_ln = torch.where(inl_ln & lines.valid, ml_of_ln, -1)
         n_inliers = torch.sum(lm_of_kp >= 0).to(torch.int32)
-        ok = n_inliers >= C.MIN_INLIERS_TRACK_LOCAL_MAP
+        # chi2-validated line inliers count toward the TrackLocalMap gate
+        n_ln_inliers = torch.sum(ml_of_ln >= 0).to(torch.int32)
+        ok = n_inliers + C.LINE_INLIER_GATE_WEIGHT * n_ln_inliers >= C.MIN_INLIERS_TRACK_LOCAL_MAP
 
         # ---- 3. keyframe policy (NeedNewKeyFrame); close-point thresholds
         # scale with the feature budget
@@ -506,7 +600,7 @@ class Tracker:
 
         was_ok = torch.clamp(ts.status, 0, 2) == ST_OK
         return _BranchOut(
-            do_insert=need_kf, lm_of_kp=lm_of_kp,
+            do_insert=need_kf, lm_of_kp=lm_of_kp, ml_of_ln=ml_of_ln,
             Tcw=Tcw2, last_Tcw=torch.where(ok, Tcw2, last.Tcw),
             update_last=ok | was_ok,
             status=torch.where(ok, ST_OK, ST_LOST).to(torch.int32),
@@ -514,7 +608,7 @@ class Tracker:
             fsk_no_insert=ts.frames_since_kf + 1,
             n_inliers=n_inliers, n_matches=n2,
             count_counters=ok | was_ok,
-            vis_ws=vis, already=already,
+            vis_ws=vis, already=already, ml_vis=ml_vis,
         )
 
     def step(self, ts: TrackState, frame: FrameData):
@@ -533,7 +627,14 @@ class Tracker:
             + torch.where(cc, req.already.to(torch.float32), 0.0),
             pt_found=add_drop(m.pt_found, torch.where((req.lm_of_kp >= 0) & cc, req.lm_of_kp, P), 1.0),
         )
-        m, row_lm, k, did_insert = self._insert_keyframe(m, frame, req.Tcw, req.lm_of_kp, req.do_insert, ts.frame_id)
+        if self.s.use_lines:
+            m = m._replace(
+                ln_visible=m.ln_visible + torch.where(cc, req.ml_vis.to(torch.float32), 0.0),
+                ln_found=add_drop(m.ln_found, torch.where((req.ml_of_ln >= 0) & cc, req.ml_of_ln,
+                                                          self.max_maplines), 1.0),
+            )
+        m, row_lm, k, did_insert = self._insert_keyframe(
+            m, frame, req.Tcw, req.lm_of_kp, req.ml_of_ln, req.do_insert, ts.frame_id)
         lm_final = torch.where(did_insert, row_lm, req.lm_of_kp)
         ref_kf = torch.where(did_insert, k, ts.ref_kf)
         local_set = ts.local_set

@@ -257,10 +257,23 @@ def pose_lm(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):
     )
     _build.check(rc, "pose_lm")
     pose_lm.launches += 1
-    return Tcw, pin.view(torch.bool), (lin[:L].view(torch.bool) if lines is not None else None)
+    if lines is None:
+        return Tcw, pin.view(torch.bool), None
+    lin = lin[:L].view(torch.bool)
+    if pose_lm.count_lines:
+        # launches fed at least one valid line row, and the line inliers
+        # they returned, counted on the card (reading them is the caller's
+        # host sync, not the step's); off by default: three small device
+        # ops per launch
+        pose_lm.line_launches = pose_lm.line_launches + lines.valid.any().to(torch.int32)
+        pose_lm.line_inliers = pose_lm.line_inliers + torch.sum(lin & lines.valid).to(torch.int32)
+    return Tcw, pin.view(torch.bool), lin
 
 
 pose_lm.launches = 0
+pose_lm.count_lines = False
+pose_lm.line_launches = 0
+pose_lm.line_inliers = 0
 
 
 def pose_optimization(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):

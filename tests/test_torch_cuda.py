@@ -6,8 +6,8 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py configures JAX for the reference tests.)
-Tolerances as in chip_smoke.py: B1 to 1e-2 with equal corner masks, B2
-exact, B3 poses to 1e-4 with at most 2 inlier flips."""
+Tolerances as in chip_smoke.py: B1 and B4 to 1e-2 with equal corner
+masks, B2 exact, B3 poses to 1e-4 with at most 2 inlier flips."""
 
 import dataclasses
 from pathlib import Path
@@ -19,13 +19,14 @@ import torch
 from plslam_tpu_torch import load_settings
 from plslam_tpu_torch.features.frame import FrameBuilder
 from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem
-from plslam_tpu_torch.ops import brief, fast_cuda, patches, pyramid
+from plslam_tpu_torch.ops import brief, fast, fast_cuda, patches, pyramid
 from plslam_tpu_torch.pipeline import tracking
 from plslam_tpu_torch.solvers import pose
 
 pytestmark = pytest.mark.cuda
 
 CFG = Path(__file__).resolve().parents[1] / "configs" / "TUM1.yaml"
+CFG_LINES = Path(__file__).resolve().parents[1] / "configs" / "TUM3.yaml"
 
 
 @pytest.fixture
@@ -49,6 +50,24 @@ def test_b1_fast_blur_stack(dev):
     for g, r in zip(got[:2], ref[:2]):
         assert torch.equal(g > 0, r > 0)
         assert int((g > 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (97, 131)])
+def test_b4_fast_scores(dev, shape):
+    """B4 against its twin; the odd shape leaves ragged tiles at both edges."""
+    rng = np.random.default_rng(shape[0])
+    img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(dev)
+    n0 = fast_cuda.fast_scores.launches
+    got = fast_cuda.fast_scores(img, 20.0, 7.0)
+    assert fast_cuda.fast_scores.launches == n0 + 1
+    ref = fast_cuda.fast_scores_plain(img, 20.0, 7.0)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-2
+        assert torch.equal(g > 0, r > 0)
+        assert int((g > 0).sum()) > 100
+    card = fast.fast_with_fallback(img, 20.0, 7.0, 32, 19)
+    assert fast_cuda.fast_scores.launches == n0 + 2
+    assert torch.equal(card.cpu() > 0, fast.fast_with_fallback(img.cpu(), 20.0, 7.0, 32, 19) > 0)
 
 
 def test_b2_gather_patches(dev):
@@ -81,7 +100,15 @@ def test_b3_pose_lm(dev, with_lines):
 
 
 def test_slice_on_card_matches_cpu_path(dev):
-    s = load_settings(CFG)
+    _card_vs_cpu(CFG)
+
+
+def test_lines_slice_on_card_matches_cpu_path(dev):
+    _card_vs_cpu(CFG_LINES)
+
+
+def _card_vs_cpu(cfg):
+    s = load_settings(cfg)
     s = dataclasses.replace(s, width=320, height=240, fx=s.fx / 2, fy=s.fy / 2, cx=s.cx / 2, cy=s.cy / 2)
     seq = SyntheticSequence(n_frames=4, seed=0, settings=s)
     runs = {}

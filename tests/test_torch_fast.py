@@ -94,3 +94,20 @@ def test_b1_twin_matches_reference_where_live(stack):
     got_score = fast.fallback_nms_border_stack(torch.from_numpy(hi), torch.from_numpy(lo), SHAPES, 32, 19)
     np.testing.assert_allclose(got_score.numpy(), ref_score, rtol=1e-6, atol=1e-4)
     np.testing.assert_array_equal(got_score.numpy() > 0, ref_score > 0)
+
+
+@pytest.mark.parametrize("shape", [(96, 128), (480, 640)])
+def test_fast_with_fallback_single_image(shape):
+    """The single-image entry (kernel B4's path; its plain scores on the
+    CPU) against the reference's fast_with_fallback: identical maps."""
+    rng = np.random.default_rng(sum(shape))
+    h, w = shape
+    img = rng.uniform(0, 255, (h // 4 + 1, w // 4 + 1)).astype(np.float32)
+    img = np.kron(img, np.ones((4, 4), np.float32))[:h, :w] + rng.normal(0, 3, (h, w)).astype(np.float32)
+    ref = np.asarray(jax.jit(jfast.fast_with_fallback, static_argnums=(3, 4))(jnp.asarray(img), 20.0, 7.0, 32, 19))
+    got = fast.fast_with_fallback(torch.from_numpy(img), 20.0, 7.0, 32, 19)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref > 0).sum() > 50
+    hi, lo = fast_cuda.fast_scores(torch.from_numpy(img), 20.0, 7.0)  # B4's plain twin on a CPU tensor
+    np.testing.assert_array_equal(hi.numpy() > 0, np.asarray(jfast.fast_scores(jnp.asarray(img), 20.0)) > 0)
+    np.testing.assert_array_equal(lo.numpy() > 0, np.asarray(jfast.fast_scores(jnp.asarray(img), 7.0)) > 0)

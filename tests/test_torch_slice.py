@@ -186,3 +186,24 @@ def test_solve_pose_matches_reference(run):
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
     assert (inl_t.numpy() != np.asarray(inl_j)).sum() <= 2
     assert inl_t.sum() > 100
+
+
+def test_point_only_line_fields_match_reference(run):
+    """Point-only settings: every keyline slot invalid, with the same
+    stand-in fields as the reference's (computed once by the builder), and
+    the line half of the map as the reference leaves it."""
+    s = _half(load_settings(CFG))
+    assert not s.use_lines
+    g, d, _ = SyntheticSequence(n_frames=1, seed=0, settings=s).frame(0)
+    f, jf = FrameBuilder(s, device="cpu")(g, d), run["jframes"][0]
+    assert not f.ln_valid.any()
+    # the stand-ins pass through the lens undistortion: float32 rounding
+    for name in ("ln_sp", "ln_ep", "ln_line2d", "ln_angle"):
+        np.testing.assert_allclose(getattr(f, name).numpy(), getattr(jf, name), atol=1e-3, err_msg=name)
+    for name in ("ln_depth_sp", "ln_depth_ep", "ln_desc"):
+        np.testing.assert_array_equal(getattr(f, name).numpy(), getattr(jf, name), err_msg=name)
+    jm = _np(run["jst"].m)
+    for name in ("kf_ln_obs", "kf_ln_sp", "kf_ln_ep"):
+        np.testing.assert_allclose(getattr(run["st"].m, name).numpy(), getattr(jm, name), atol=1e-3, err_msg=name)
+    for name in ("kf_ln_idx", "kf_ln_valid", "kf_ln_desc", "ln_valid", "ln_visible", "ln_found", "ln_nobs", "n_ln"):
+        np.testing.assert_array_equal(getattr(run["st"].m, name).numpy(), getattr(jm, name), err_msg=name)
