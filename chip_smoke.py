@@ -5,19 +5,22 @@
 
 Phases, each timed and printed:
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the one nvcc call over plslam_tpu_torch/csrc/*.cu;
+  2. build    the one nvcc call over plslam_tpu_torch/csrc/*.cu, with
+              ptxas's report for every kernel (fails if B3 spills);
   3. kernels  each CUDA kernel at its main-path shapes against its plain
               PyTorch twin on the card (max abs error vs the stated
               tolerance), with CUDA-event times and the least time the card
-              could take for the same work;
+              could take for the same work; B3 also at its latency floor
+              (no valid row) and with P = 2 stacked problems, as the
+              tracker's motion-model + fallback call gives it;
   4. fast     the single-image FAST entry (ops/fast.py fast_with_fallback,
               kernel B4) on 30 synthetic 640x480 frames, B4's launches
               counted during exactly this run, held against the CPU path;
   5. slice    the point-only FrameBuilder -> Tracker step (configs/TUM1.yaml,
               640x480) over 30 synthetic frames on the card: status per
               frame, ATE against ground truth, ms/frame, kernel launches
-              counted during exactly this run, and the first frames held
-              against the port's plain CPU path;
+              counted during exactly this run (B3: two per tracked frame),
+              and the first frames held against the port's plain CPU path;
   6. slice-lines  the same for the point+line step (configs/TUM3.yaml, lines
               on, device LSD, 640x480): also map lines and line inliers per
               frame, and B3 fed valid line rows on every tracked frame.
@@ -172,7 +175,9 @@ def run_slice(name, settings, seq, frames, lines: bool):
         require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
         require(launches["fast_blur_stack"] == n and launches["gather_patches"] == n,
                 "B1/B2 not launched once per frame")
-        require(launches["pose_lm"] >= n - 1, "B3 not launched on every tracked frame")
+        # every frame after the first: the stacked motion-model + fallback
+        # solve and the joint refinement, one launch each
+        require(launches["pose_lm"] == 2 * (n - 1), f"B3 launched {launches['pose_lm']} times, not 2 per tracked frame")
         if lines:
             fed = np.diff(line_launches)
             inl = np.diff(line_inliers)
@@ -207,7 +212,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from plslam_tpu_torch import _build, load_settings
     from plslam_tpu_torch import constants as C
-    from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem, pose_problem_pair
     from plslam_tpu_torch.ops import brief, fast, fast_cuda, patches, pyramid
     from plslam_tpu_torch.solvers import pose as pose_mod
 
@@ -226,10 +231,18 @@ def main() -> int:
 
     with Phase("build"):
         _build.library()
-        log(f"nvcc: {_build.last_build['seconds']:.2f} s -> {Path(_build.last_build['path']).name}")
-        for line in _build.last_build.get("log", "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas: {line.strip()}")
+        cached = " (cached build; its ptxas report as kept beside it)" if _build.last_build["cached"] else ""
+        log(f"nvcc: {_build.last_build['seconds']:.2f} s -> {Path(_build.last_build['path']).name}{cached}")
+        ptxas = [ln.strip() for ln in _build.last_build["log"].splitlines()
+                 if any(k in ln for k in ("registers", "spill", "Compiling entry", "Function properties"))]
+        for line in ptxas:
+            log(f"  ptxas: {line}")
+        # B3 must not spill: its per-row state and the 29 sums stay in registers
+        spills = [b for a, b in zip(ptxas, ptxas[1:]) if "Function properties" in a and "pose_lm_kernel" in a]
+        require(bool(spills), "no ptxas report for the pose kernel")
+        require(all("0 bytes spill stores, 0 bytes spill loads" in b for b in spills),
+                f"the pose kernel spills: {spills}")
+        log(f"pose_lm: at most {pose_mod.smem_limit()} bytes of rows per problem in shared memory")
 
     settings = load_settings(ROOT / "configs" / "TUM1.yaml")
     seq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=settings)
@@ -352,12 +365,35 @@ def main() -> int:
             )
         ms3, plain3 = times3[True]
         # latency floor: the same launch and schedule with no valid row, so
-        # only the 14 block reductions and thread 0's serial solves remain
+        # only the 14 block reductions and the per-warp solves remain
         empty = pose_mod.PointObs(*(T(a) for a in pb["pts"][:4]), torch.zeros_like(pts.valid))
         no_lines = pose_mod.LineObs(*(T(a) for a in pb["lines"][:4]), torch.zeros_like(lines.valid))
         floor3 = cuda_ms(torch, lambda: pose_mod.pose_lm(T0, empty, pb["K"], pb["bf"], no_lines))
+        # P = 2 laid out as the tracker's stacked call gives them: the
+        # motion-model and the ref-KF fallback problems, points only, one
+        # launch; the start pose, obs, inverse sigma2 and stereo flags
+        # expanded along the problem axis (stride 0, staged from one copy),
+        # landmarks and valid flags per problem
+        pr = pose_problem_pair(np.random.default_rng(1))
+        pts2 = pose_mod.PointObs(T(pr["xw"]), T(pr["obs"]).expand(2, -1, -1), T(pr["isig"]).expand(2, -1),
+                                 T(pr["stereo"]).expand(2, -1), T(pr["valid"]))
+        pts1 = pose_mod.PointObs(*(f[0] for f in pts2))
+        T02 = T0.expand(2, 4, 4)
+        Tk2, pk2, _ = pose_mod.pose_lm(T02, pts2, pr["K"], pr["bf"])
+        Tp2, pp2, _ = pose_mod.pose_optimization_plain(T02, pts2, pr["K"], pr["bf"])
+        torch.cuda.synchronize()
+        e2 = float((Tk2 - Tp2).abs().max())
+        flips2 = [int((pk2[i] != pp2[i]).sum()) for i in range(2)]
+        log(f"B3 pose_lm P = 2 (points only, tracker layout): |dT| {e2:.3e} (tol {TOL_B3_POSE}), "
+            f"inlier flips {flips2} (tol {TOL_B3_FLIPS} each), inliers {[int(k.sum()) for k in pk2]}")
+        require(bool(torch.isfinite(Tk2).all()) and e2 <= TOL_B3_POSE and max(flips2) <= TOL_B3_FLIPS,
+                "B3 (P = 2) disagrees with its plain twin")
+        err3 = max(err3, e2)
+        ms3_p2 = cuda_ms(torch, lambda: pose_mod.pose_lm(T02, pts2, pr["K"], pr["bf"]))
+        ms3_p1 = cuda_ms(torch, lambda: pose_mod.pose_lm(T0, pts1, pr["K"], pr["bf"]))
         log(f"B3 pose_lm: {ms3:.4f} ms (lines valid), {times3[False][0]:.4f} ms (no valid line), "
-            f"{floor3:.4f} ms (no valid row: latency floor); plain {plain3:.4f} ms")
+            f"{floor3:.4f} ms (no valid row: latency floor), {ms3_p2:.4f} ms (P = 2, points only) "
+            f"against {ms3_p1:.4f} ms (P = 1, points only); plain {plain3:.4f} ms")
         # float32 operations, counted from pose_lm.cu's bodies. One build
         # (point_terms / line_terms over the active rows): a mono point row
         # 180 (point_residual 28, chi2 6, Huber 7, Jacobian 17, two add_row
@@ -367,9 +403,11 @@ def main() -> int:
         # the (4, 2, 2, 2) schedule builds 1 + iters[r] times: round 0 over
         # the valid rows, later rounds over the re-classified ones, counted
         # here as the final inliers (the per-round sets stay on the card).
-        # Each round's re-classification: 35 per valid mono point, 38 per
-        # stereo one, 109 per valid line. Thread 0: solve6 209 + exp_compose
-        # 215 per iteration, 10 iterations.
+        # Each round's re-classification (fused into the next round's first
+        # build in the kernel; the last one its own pass): 35 per valid mono
+        # point, 38 per stereo one, 109 per valid line. The solve, counted
+        # once though every warp repeats it: solve6 209 + exp_compose 215
+        # per iteration, 10 iterations.
         st = pts.is_stereo
 
         def build_ops(p_act, l_act):

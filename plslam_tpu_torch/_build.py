@@ -41,8 +41,10 @@ _SIGNATURES = {
     # img, yx, out, H, W, K, size, stream
     "plslam_gather_patches": [P, P, P, I, I, I, I, P],
     # Tcw0, xw, obs, isig, stereo, valid, N, sw, ew, l2d, isig_l, lvalid, L,
-    # fx, fy, cx, cy, bf, rounds, sched*, Tcw_out, pin, lin, stream
-    "plslam_pose_lm": [P, P, P, P, P, P, I, P, P, P, P, P, I, F, F, F, F, F, I, P, P, P, P, P],
+    # problems, strides*, fx, fy, cx, cy, bf, rounds, sched*, Tcw_out, pin, lin, stream
+    "plslam_pose_lm": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, P, F, F, F, F, F, I, P, P, P, P, P],
+    # out: the most row bytes one pose_lm problem may stage
+    "plslam_pose_lm_smem_limit": [P],
 }
 
 
@@ -72,8 +74,10 @@ def build() -> Path:
     import time
 
     out = BUILD_DIR / f"libplslam_kernels_{_digest()}.so"
+    report = out.with_suffix(".log")  # the build's nvcc / ptxas output, kept beside it
     if out.exists():
-        last_build.update(seconds=0.0, path=str(out), cached=True, log="")
+        last_build.update(seconds=0.0, path=str(out), cached=True,
+                          log=report.read_text() if report.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -84,9 +88,10 @@ def build() -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    report.write_text(log)  # before the library: a cached library always has its report
     os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
-    last_build.update(seconds=time.perf_counter() - t0, path=str(out), cached=False,
-                      log=proc.stdout + proc.stderr)
+    last_build.update(seconds=time.perf_counter() - t0, path=str(out), cached=False, log=log)
     return out
 
 

@@ -2,12 +2,15 @@
 
 Copy of plslam_tpu/io/synthetic.py's "xyz" sequence (a textured background
 plane plus floating foreground patches, rendered by ray-plane intersection
-along a smooth fr1_xyz-style trajectory) that needs no OpenCV: the texture
-blur, the stripe rasterisation and the lens undistortion of the pixel rays
-are written in numpy after OpenCV's GaussianBlur (reflect-101 border),
-line (thick segment) and undistortPoints (5 fixed-point iterations). The
-random stream is consumed in the reference's order, so a seed gives the
-same trajectory, patch layout and stripe placement.
+along a smooth fr1_xyz-style trajectory) that needs no OpenCV. Three
+OpenCV calls of the reference are written out in numpy: GaussianBlur
+(reflect-101 border, float64 taps here, so texels differ from OpenCV's by
+float32 rounding only), line (the thick-line path exactly: clipping,
+16-bit fixed point, the filled offset quad and the end discs, so the
+stripes hit the same pixels) and undistortPoints (5 fixed-point
+iterations). The random stream is consumed in the reference's order, so a
+seed gives the reference's trajectory, patch layout, stripes and frames
+(tests/test_torch_synthetic.py).
 
 `pose_problem` makes a full-capacity motion-only pose problem (the inputs
 of solvers/pose.py) for the pose kernel's checks.
@@ -34,21 +37,168 @@ def _gaussian_blur(img, sigma):
     return out.astype(np.float32)
 
 
-def _draw_segment(img, p0, p1, value, thickness):
-    """Paint pixels within thickness/2 of the segment p0-p1 (round caps)."""
+# cv2.line's thick-line path (LINE_8, integer endpoints, thickness > 1),
+# copied from OpenCV's drawing code: coordinates in 16-bit fixed point, the
+# segment clipped to the image grown by the thickness, the offset quad filled
+# as a convex polygon (its edges drawn too), a filled disc at each end.
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+_HALF = _XY_ONE >> 1
+
+
+def _tdiv(a, b):
+    """C integer division (truncates toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _clip_line(w, h, x1, y1, x2, y2):
+    """OpenCV's clipLine(Size2l) on int64 coordinates -> (visible, x1, y1, x2, y2)."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line_fixed(img, p1, p2, value):
+    """OpenCV's Line2: a one-pixel line between fixed-point points."""
     H, W = img.shape
-    half = thickness / 2.0
-    (x0, y0), (x1, y1) = p0, p1
-    xa, xb = int(max(np.floor(min(x0, x1) - half), 0)), int(min(np.ceil(max(x0, x1) + half), W - 1))
-    ya, yb = int(max(np.floor(min(y0, y1) - half), 0)), int(min(np.ceil(max(y0, y1) + half), H - 1))
-    if xa > xb or ya > yb:
+    ok, x1, y1, x2, y2 = _clip_line(W << _XY_SHIFT, H << _XY_SHIFT, *p1, *p2)
+    if not ok:
         return
-    yy, xx = np.mgrid[ya : yb + 1, xa : xb + 1].astype(np.float64)
-    dx, dy = x1 - x0, y1 - y0
-    L2 = max(dx * dx + dy * dy, 1e-12)
-    t = np.clip(((xx - x0) * dx + (yy - y0) * dy) / L2, 0.0, 1.0)
-    d2 = (xx - (x0 + t * dx)) ** 2 + (yy - (y0 + t * dy)) ** 2
-    img[ya : yb + 1, xa : xb + 1][d2 <= half * half] = value
+    dx, dy = x2 - x1, y2 - y1
+    k_along_x = abs(dx) > abs(dy)
+    if (dx if k_along_x else dy) < 0:
+        x1, x2, y1, y2 = x2, x1, y2, y1
+        dx, dy = -dx, -dy
+    if 0 <= (x2 + _HALF) >> _XY_SHIFT < W and 0 <= (y2 + _HALF) >> _XY_SHIFT < H:
+        img[(y2 + _HALF) >> _XY_SHIFT, (x2 + _HALF) >> _XY_SHIFT] = value
+    x1 += _HALF
+    y1 += _HALF
+    if k_along_x:
+        k = np.arange(((x2 - x1 + _HALF) >> _XY_SHIFT) + 1, dtype=np.int64)
+        xs = (x1 >> _XY_SHIFT) + k
+        ys = (y1 + k * _tdiv(dy << _XY_SHIFT, dx | 1)) >> _XY_SHIFT
+    else:
+        k = np.arange(((y2 - y1 + _HALF) >> _XY_SHIFT) + 1, dtype=np.int64)
+        ys = (y1 >> _XY_SHIFT) + k
+        xs = (x1 + k * _tdiv(dx << _XY_SHIFT, dy | 1)) >> _XY_SHIFT
+    m = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    img[ys[m], xs[m]] = value
+
+
+def _fill_convex_poly(img, v, value):
+    """OpenCV's FillConvexPoly for LINE_8 and fixed-point vertices."""
+    H, W = img.shape
+    n = len(v)
+    for p0, p in zip(v[-1:] + v[:-1], v):
+        _line_fixed(img, p0, p, value)
+    ys_ = [p[1] for p in v]
+    imin = ys_.index(min(ys_))
+    xmin = (min(p[0] for p in v) + _HALF) >> _XY_SHIFT
+    xmax = (max(p[0] for p in v) + _HALF) >> _XY_SHIFT
+    y = (min(ys_) + _HALF) >> _XY_SHIFT
+    ymax = (max(ys_) + _HALF) >> _XY_SHIFT
+    if xmax < 0 or ymax < 0 or xmin >= W or y >= H:
+        return
+    ymax = min(ymax, H - 1)
+    # two edges walk down from the top vertex, one each way round
+    edge = [dict(idx=imin, di=1, x=-_XY_ONE, dx=0, ye=y), dict(idx=imin, di=n - 1, x=-_XY_ONE, dx=0, ye=y)]
+    edges = n
+    while True:
+        for e in edge:
+            if y < e["ye"]:
+                continue
+            idx0 = e["idx"]
+            idx = (idx0 + e["di"]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + _HALF) >> _XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    e.update(ye=ty, dx=_tdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y)), x=xs, idx=idx)
+                    break
+                idx0, idx = idx, (idx + e["di"]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            xl, xr = sorted((edge[0]["x"], edge[1]["x"]))
+            x1, x2 = (xl + _HALF) >> _XY_SHIFT, (xr + _HALF) >> _XY_SHIFT
+            if x2 >= 0 and x1 < W:
+                img[y, max(x1, 0) : min(x2, W - 1) + 1] = value
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _fill_circle(img, cx, cy, radius, value):
+    """OpenCV's Circle with fill: midpoint circle, one span per octant pair."""
+    H, W = img.shape
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for y, xa, xb, span_ok in (
+            (cy - dy, cx - dx, cx + dx, True), (cy + dy, cx - dx, cx + dx, True),
+            (cy - dx, cx - dy, cx + dy, cx - dy < W and cx + dy >= 0),
+            (cy + dx, cx - dy, cx + dy, cx - dy < W and cx + dy >= 0),
+        ):
+            if span_ok and cx - dx < W and cx + dx >= 0 and 0 <= y < H:
+                img[y, max(xa, 0) : min(xb, W - 1) + 1] = value
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def _draw_line(img, p0, p1, value, thickness):
+    """What cv2.line(img, p0, p1, value, thickness) draws for integer
+    endpoints and thickness 2-4 (LINE_8), on a float image in place."""
+    H, W = img.shape
+    t = thickness
+    ok, x0, y0, x1, y1 = _clip_line(W + 2 * t, H + 2 * t, p0[0] + t, p0[1] + t, p1[0] + t, p1[1] + t)
+    if not ok:
+        return
+    q0 = ((x0 - t) << _XY_SHIFT, (y0 - t) << _XY_SHIFT)
+    q1 = ((x1 - t) << _XY_SHIFT, (y1 - t) << _XY_SHIFT)
+    dx = (q0[0] - q1[0]) / _XY_ONE
+    dy = (q1[1] - q0[1]) / _XY_ONE
+    r2 = dx * dx + dy * dy
+    half = t << (_XY_SHIFT - 1)
+    if r2 > np.finfo(np.float64).eps:
+        r = (half + (t & 1) * _XY_ONE * 0.5) / np.sqrt(r2)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))  # cvRound: half to even
+        quad = [(q0[0] + ox, q0[1] + oy), (q0[0] - ox, q0[1] - oy), (q1[0] - ox, q1[1] - oy), (q1[0] + ox, q1[1] + oy)]
+        _fill_convex_poly(img, quad, value)
+    for q in (q0, q1):
+        _fill_circle(img, (q[0] + _HALF) >> _XY_SHIFT, (q[1] + _HALF) >> _XY_SHIFT, (half + _HALF) >> _XY_SHIFT, value)
 
 
 def _texture(rng, size=2048, n_lines=40):
@@ -63,7 +213,7 @@ def _texture(rng, size=2048, n_lines=40):
         x1, y1 = x0 + np.cos(ang) * length, y0 + np.sin(ang) * length
         value = float(rng.choice([20.0, 235.0]))
         thickness = int(rng.integers(2, 5))
-        _draw_segment(tex, (int(x0), int(y0)), (int(x1), int(y1)), value, thickness)
+        _draw_line(tex, (int(x0), int(y0)), (int(x1), int(y1)), value, thickness)
     return tex
 
 
@@ -234,3 +384,18 @@ def pose_problem(rng, n=1024, n_lines=128, with_lines=True):
         pts=(f(xw), f(obs), np.ones(n, np.float32), rng.uniform(size=n) < 0.8, valid),
         lines=(f(sw), f(ew), f(l2d), np.ones(n_lines, np.float32), lvalid),
     )
+
+
+def pose_problem_pair(rng, n=1024):
+    """Two point-only problems as the tracker stacks its motion-model and
+    reference-keyframe fallback solves: the same keypoints (obs, inverse
+    sigma2, stereo flags, shared once) against two landmark sets. Problem
+    0 is `pose_problem`'s; problem 1 moves its landmarks by 1 cm noise and
+    drops a fifth of its valid rows. Returns dict(K, bf, xw f32[2, N, 3],
+    valid bool[2, N], obs f32[N, 3], isig f32[N], stereo bool[N])."""
+    pb = pose_problem(rng, n=n, with_lines=False)
+    xw, obs, isig, stereo, valid = pb["pts"]
+    xw1 = (xw + rng.normal(0, 0.01, xw.shape)).astype(np.float32)
+    valid1 = valid & (rng.uniform(size=n) > 0.2)
+    return dict(K=pb["K"], bf=pb["bf"], xw=np.stack([xw, xw1]), valid=np.stack([valid, valid1]),
+                obs=obs, isig=isig, stereo=stereo)

@@ -4,11 +4,13 @@ single-image form without the blur.
 
 Replaces `_band_kernel_stack` (plslam_tpu/ops/fast_pallas.py:145, launched
 by `fast_scores_pallas_stack`, used at plslam_tpu/features/orb.py:106-116).
-CUDA source: csrc/fast_blur.cu. On the card the kernel is bound by memory
-traffic: one read of the f32[L, H, W] stack and three writes (s_hi, s_lo,
-blur), ~39 MB at 8 x 480 x 640, ~12 us at 3.35 TB/s. It reads each 32x8
-tile once into shared memory with a 3-px halo and computes the 16 ring
-differences, both arc tests, both scores and the separable blur from it.
+CUDA source: csrc/fast_blur.cu. Its bytes bound on the card is one read
+of the f32[L, H, W] stack and three writes (s_hi, s_lo, blur), ~34 MB at
+8 x 480 x 640, ~10 us at 3.35 TB/s; the per-pixel work is what it has to
+keep under that. Each block loads a 64x16 tile with its 3-px halo by one
+TMA copy and each thread walks 4 pixels down a column with a 7x7 window
+in registers; ring bits come from sign bits, and the relu sums run only
+in warps that found a 9-arc.
 
 Tiles that lie beyond a level's live extent are written as zeros without
 compute. The live extent is the level's true (h, w) from `level_shapes`

@@ -85,12 +85,77 @@ def _remainder(x, y: float):
     return torch.where(m < 0, m + y, m)
 
 
+# fdlibm's atanf / atan2f constants (s_atanf.c, e_atan2f.c) as the C
+# compiler rounds their decimal literals to float32 (the hex words in
+# fdlibm's comments are not always those values)
+def _f32s(*lits):
+    return [float(np.float32(v)) for v in lits]
+
+
+_ATAN_HI = _f32s("4.6364760399e-01", "7.8539812565e-01", "9.8279368877e-01", "1.5707962513e+00")
+_ATAN_LO = _f32s("5.0121582440e-09", "3.7748947079e-08", "3.4473217170e-08", "7.5497894159e-08")
+_AT = _f32s("3.3333334327e-01", "-2.0000000298e-01", "1.4285714924e-01", "-1.1111110449e-01",
+            "9.0908870101e-02", "-7.6918758452e-02", "6.6610731184e-02", "-5.8335702866e-02",
+            "4.9768779427e-02", "-3.6531571299e-02", "1.6285819933e-02")
+_PI, _PI_O_2, _PI_LO = _f32s("3.1415927410e+00", "1.5707963705e+00", "-8.7422776573e-08")
+
+
+def _atanf_fdlibm(x):
+    """fdlibm's atanf on a finite f32 tensor, operation for operation."""
+    ix = x.view(torch.int32) & 0x7FFFFFFF
+    ax = torch.abs(x)
+    one = torch.ones_like(x)
+    # argument reduction: id -1 (|x| < 0.4375) keeps x, ids 0-3 reduce |x|
+    t = torch.where(ix < 0x3F300000, (2.0 * ax - 1.0) / (2.0 + ax),
+        torch.where(ix < 0x3F980000, (ax - 1.0) / (ax + 1.0),
+        torch.where(ix < 0x401C0000, (ax - 1.5) / (1.5 * ax + one), -1.0 / ax)))
+    idx = ((ix >= 0x3F300000).int() + (ix >= 0x3F980000).int() + (ix >= 0x401C0000).int())
+    small = ix < 0x3EE00000
+    t = torch.where(small, x, t)
+    z = t * t
+    w = z * z
+    a = _AT
+    s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (a[8] + w * a[10])))))
+    s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
+    hi = torch.tensor(_ATAN_HI, dtype=x.dtype, device=x.device)[idx]
+    lo = torch.tensor(_ATAN_LO, dtype=x.dtype, device=x.device)[idx]
+    zz = hi - ((t * (s1 + s2) - lo) - t)
+    out = torch.where(small, torch.where(ix < 0x31000000, x, t - t * (s1 + s2)), torch.where(x < 0, -zz, zz))
+    big = torch.where(x < 0, -(_ATAN_HI[3] + _ATAN_LO[3]), _ATAN_HI[3] + _ATAN_LO[3])
+    return torch.where(ix >= 0x4C000000, big, out)
+
+
+def atan2_fdlibm(y, x):
+    """The C library's atan2f (fdlibm's e_atan2f.c, which XLA's CPU backend
+    calls) on finite f32 tensors, so angles equal the reference's to the
+    bit on the CPU."""
+    hx, hy = x.view(torch.int32), y.view(torch.int32)
+    ix, iy = hx & 0x7FFFFFFF, hy & 0x7FFFFFFF
+    k = (iy - ix) >> 23
+    q = torch.where(ix == 0, torch.ones_like(x), torch.abs(y / torch.where(ix == 0, 1.0, x)))
+    z = _atanf_fdlibm(q)
+    z = torch.where(k > 60, _PI_O_2 + 0.5 * _PI_LO, torch.where((hx < 0) & (k < -60), 0.0, z))
+    neg_y, neg_x = hy < 0, hx < 0
+    out = torch.where(neg_x, torch.where(neg_y, (z - _PI_LO) - _PI, _PI - (z - _PI_LO)), torch.where(neg_y, -z, z))
+    out = torch.where(ix == 0, torch.where(neg_y, -_PI_O_2, _PI_O_2), out)
+    out = torch.where(iy == 0, torch.where(neg_x, torch.where(neg_y, -_PI, _PI), y), out)
+    return torch.where(hx == 0x3F800000, _atanf_fdlibm(y), out)
+
+
 def support_maps(gray, grad_th: float = GRAD_TH, n_dirs: int = N_DIRS):
     """-> (support f32[B, H, W] aligned-gradient indicator, mag f32[H, W])."""
     gx, gy = image_gradients(gray)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    if gray.device.type == "cpu":
+        # the reference's CPU results to the bit (a last-bit difference
+        # flips support pixels at the angle tolerance and, through them,
+        # whole segments): a correctly rounded square root, which torch's
+        # vectorised float32 one is not, and the C library's atan2f
+        mag = torch.sqrt((gx * gx + gy * gy).double()).float()
+        line_ang = atan2_fdlibm(gy, gx) + math.pi / 2
+    else:
+        mag = torch.sqrt(gx * gx + gy * gy)
+        line_ang = torch.atan2(gy, gx) + math.pi / 2
     # the line runs perpendicular to the gradient; fold into [0, pi)
-    line_ang = torch.atan2(gy, gx) + math.pi / 2
     thetas = torch.arange(n_dirs, dtype=torch.float32, device=gray.device) * (math.pi / n_dirs)
     d = line_ang[None] - thetas[:, None, None]
     d = torch.abs(_remainder(d + math.pi / 2, math.pi) - math.pi / 2)

@@ -503,15 +503,9 @@ class Tracker:
         has1 = (tgt_of_kp >= 0) & frame.valid
         tgt_c = torch.clamp(tgt_of_kp, min=0).long()
         n1 = torch.sum(has1)
-        # solve from the last validated pose (the velocity only places windows)
-        Tcw1, inl1, _ = pose_optimization(last.Tcw, self._point_obs(frame, tgt_pos[tgt_c], has1), self.K_host, self.bf)
-        inl1 &= has1
-        tgt_lm = last.lm_idx[tgt_c]
-        lm_mm = torch.where(inl1 & (tgt_of_kp >= 0) & (tgt_lm >= 0), tgt_lm, -1)
 
         # ---- 1b. TrackReferenceKeyFrame fallback, computed beside the
         # motion-model result and selected (the reference's lax.cond)
-        ok_mm = (n1 >= C.MIN_MATCHES_MOTION_MODEL) & (torch.sum(inl1) >= 10)
         ref = ts.ref_kf.long()
         ref_lm_row = m.kf_lm_idx[ref]
         mb, _ = match_ops.match_descriptors(
@@ -522,11 +516,22 @@ class Tracker:
         lm_fb = torch.where(mb >= 0, ref_lm_row[torch.clamp(mb, min=0).long()], -1)
         has_fb = frame.valid & (lm_fb >= 0)
         enough = torch.sum(has_fb) >= C.MIN_MATCHES_REF_KF
-        Tcw_fb, inl_fb, _ = pose_optimization(
-            last.Tcw, self._point_obs(frame, m.pt_pos[torch.clamp(lm_fb, min=0).long()], has_fb & enough),
-            self.K_host, self.bf,
+        # both solves start from the last validated pose (the velocity only
+        # places windows) and depend on each other in nothing: one stacked
+        # call, one launch of B3 on the card (problem 0: motion model, 1:
+        # fallback). The frame's observations are shared, not copied.
+        obs = self._point_obs(frame, tgt_pos[tgt_c], has1)
+        both = PointObs(
+            xw=torch.stack([obs.xw, m.pt_pos[torch.clamp(lm_fb, min=0).long()]]),
+            obs=obs.obs.expand(2, -1, -1), inv_sigma2=obs.inv_sigma2.expand(2, -1),
+            is_stereo=obs.is_stereo.expand(2, -1), valid=torch.stack([has1, has_fb & enough]),
         )
-        Tcw_fb = torch.where(enough, Tcw_fb, last.Tcw)
+        Tcw_2, inl_2, _ = pose_optimization(last.Tcw.expand(2, -1, -1), both, self.K_host, self.bf)
+        Tcw1, inl1 = Tcw_2[0], inl_2[0] & has1
+        tgt_lm = last.lm_idx[tgt_c]
+        lm_mm = torch.where(inl1 & (tgt_of_kp >= 0) & (tgt_lm >= 0), tgt_lm, -1)
+        ok_mm = (n1 >= C.MIN_MATCHES_MOTION_MODEL) & (torch.sum(inl1) >= 10)
+        Tcw_fb, inl_fb = torch.where(enough, Tcw_2[1], last.Tcw), inl_2[1]
         lm_fb = torch.where(inl_fb & has_fb & enough, lm_fb, -1)
         Tcw1 = torch.where(ok_mm, Tcw1, Tcw_fb)
         lm_of_kp = torch.where(ok_mm, lm_mm, lm_fb)

@@ -11,6 +11,11 @@ lam * nu). `pose_lm` is kernel B3 (csrc/pose_lm.cu), which replaces
 plslam_tpu/solvers/pose.py:168-179). `pose_optimization` dispatches on the
 device of the observations.
 
+Every entry also takes P independent problems stacked on a leading axis
+(Tcw0 f32[P, 4, 4], PointObs fields [P, N, ...], LineObs fields [P, L, ...]);
+B3 solves them in one launch, one block each, and the plain twin one after
+the other, each exactly as alone.
+
 Padded rows may carry non-finite coordinates: their residuals are zeroed
 before any reduction, because a zero weight does not save b = (J w)^T r
 from 0 * NaN.
@@ -137,7 +142,18 @@ def _chi2_threshold_pts(is_stereo):
 
 def pose_optimization_plain(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):
     """Plain PyTorch twin of B3 -> (Tcw f32[4,4], pt_inlier bool[N],
-    line_inlier bool[L] | None). No host synchronisation."""
+    line_inlier bool[L] | None), or the same with a leading problem axis
+    for stacked problems. No host synchronisation."""
+    if Tcw0.ndim == 3:
+        outs = [_solve_plain(Tcw0[p], PointObs(*(f[p] for f in pts)), K, bf,
+                             None if lines is None else LineObs(*(f[p] for f in lines)))
+                for p in range(Tcw0.shape[0])]
+        return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+                None if lines is None else torch.stack([o[2] for o in outs]))
+    return _solve_plain(Tcw0, pts, K, bf, lines)
+
+
+def _solve_plain(Tcw0, pts: PointObs, K, bf, lines: LineObs | None):
     cam = _intrinsics(K)
     bf = float(bf)
     has_lines = lines is not None
@@ -211,63 +227,107 @@ def pose_optimization_plain(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = 
     return Tcw, active_pts, active_lines
 
 
-def _f32(t, shape, dev):
-    if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != dev:
-        raise ValueError(f"pose_lm wants f32{list(shape)} on {dev}, got {t.dtype}{list(t.shape)} on {t.device}")
-    return t.contiguous()
+MAX_PROBLEMS = 8  # problems per launch (csrc/pose_lm.cu)
 
 
-def _u8(t, n, dev):
-    if t.dtype != torch.bool or tuple(t.shape) != (n,) or t.device != dev:
-        raise ValueError(f"pose_lm wants bool[{n}] on {dev}, got {t.dtype}{list(t.shape)} on {t.device}")
-    return t.contiguous().view(torch.uint8)
+def smem_limit() -> int:
+    """The most row bytes (30 N + 41 L) one problem may stage: the card's
+    shared memory per block less the kernel's own, as the C entry checks
+    it (asked of the card once)."""
+    from plslam_tpu_torch import _build
+
+    if smem_limit.bytes is None:
+        out = ctypes.c_int()
+        _build.check(_build.library().plslam_pose_lm_smem_limit(ctypes.byref(out)), "pose_lm_smem_limit")
+        smem_limit.bytes = out.value
+    return smem_limit.bytes
+
+
+smem_limit.bytes = None
+
+
+def _staged(t, dtype, shape, dev):
+    """-> (problem 0's contiguous data, problem stride in elements): a field
+    expanded along the problem axis (stride 0, e.g. the observations both
+    of the tracker's problems share) is passed once, with stride 0."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+        raise ValueError(f"pose_lm wants {dtype}{list(shape)} on {dev}, got {t.dtype}{list(t.shape)} on {t.device}")
+    if t.stride(0) == 0 and t[0].is_contiguous():
+        t, stride = t[0], 0
+    else:
+        t = t.contiguous()
+        stride = t.stride(0)
+    return (t.view(torch.uint8) if dtype == torch.bool else t), stride
 
 
 def pose_lm(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):
-    """Kernel B3: the whole solve in one single-block launch on the card.
-    Same contract as pose_optimization_plain; CUDA tensors only."""
+    """Kernel B3: the whole solve of one problem, or of P <= 8 stacked
+    problems, in one launch on the card (one block per problem). Same
+    contract as pose_optimization_plain; CUDA tensors only.
+
+    The kernel stages each problem's rows into shared memory with bulk
+    async copies, so N and L must be multiples of 16, every input 16-byte
+    aligned and one problem's rows (30 N + 41 L bytes) within
+    `smem_limit()`, about 219 KB on the H100. A field expanded along the
+    problem axis is read once for all problems."""
     from plslam_tpu_torch import _build
 
     dev = pts.xw.device
     if dev.type != "cuda":
         raise ValueError(f"pose_lm wants CUDA tensors, got {dev}")
-    N = pts.xw.shape[0]
-    L = lines.sw.shape[0] if lines is not None else 0
-    if not (0 < N <= 4096 and L <= 4096):
-        raise ValueError(f"pose_lm supports N in 1..4096 and L <= 4096 (got {N}, {L})")
+    batched = Tcw0.ndim == 3
+    if not batched:
+        Tcw0, pts = Tcw0[None], PointObs(*(f[None] for f in pts))
+        lines = None if lines is None else LineObs(*(f[None] for f in lines))
+    P, N = pts.xw.shape[:2]
+    L = lines.sw.shape[1] if lines is not None else 0
+    if not (1 <= P <= MAX_PROBLEMS):
+        raise ValueError(f"pose_lm solves 1..{MAX_PROBLEMS} problems per launch, got {P}")
+    if not (16 <= N <= 4096 and N % 16 == 0 and L <= 4096 and L % 16 == 0):
+        raise ValueError(f"pose_lm wants N in 16..4096 and L <= 4096, both multiples of 16 (got {N}, {L})")
+    if 30 * N + 41 * L > smem_limit():
+        raise ValueError(f"pose_lm: {30 * N + 41 * L} bytes of rows per problem exceed {smem_limit()}")
+    f32, b8 = torch.float32, torch.bool
     keep = [
-        _f32(Tcw0, (4, 4), dev), _f32(pts.xw, (N, 3), dev), _f32(pts.obs, (N, 3), dev),
-        _f32(pts.inv_sigma2, (N,), dev), _u8(pts.is_stereo, N, dev), _u8(pts.valid, N, dev),
+        _staged(Tcw0, f32, (P, 4, 4), dev), _staged(pts.xw, f32, (P, N, 3), dev),
+        _staged(pts.obs, f32, (P, N, 3), dev), _staged(pts.inv_sigma2, f32, (P, N), dev),
+        _staged(pts.is_stereo, b8, (P, N), dev), _staged(pts.valid, b8, (P, N), dev),
     ]
     if lines is not None:
-        keep += [_f32(lines.sw, (L, 3), dev), _f32(lines.ew, (L, 3), dev), _f32(lines.line2d, (L, 3), dev),
-                 _f32(lines.inv_sigma2, (L,), dev), _u8(lines.valid, L, dev)]
-    else:
-        keep += [None] * 5
-    Tcw = torch.empty((4, 4), dtype=torch.float32, device=dev)
-    pin = torch.empty(N, dtype=torch.uint8, device=dev)
-    lin = torch.empty(max(L, 1), dtype=torch.uint8, device=dev)
+        keep += [_staged(lines.sw, f32, (P, L, 3), dev), _staged(lines.ew, f32, (P, L, 3), dev),
+                 _staged(lines.line2d, f32, (P, L, 3), dev), _staged(lines.inv_sigma2, f32, (P, L), dev),
+                 _staged(lines.valid, b8, (P, L), dev)]
+    misaligned = [i for i, (t, _) in enumerate(keep[1:]) if t.data_ptr() % 16]
+    if misaligned:
+        raise ValueError(f"pose_lm: inputs {misaligned} (PointObs fields, then LineObs fields) are not "
+                         "16-byte aligned, which the bulk copies into shared memory need")
+    keep += [(None, 0)] * (11 - len(keep))
+    Tcw = torch.empty((P, 4, 4), dtype=torch.float32, device=dev)
+    pin = torch.empty((P, N), dtype=torch.uint8, device=dev)
+    lin = torch.empty((P, max(L, 1)), dtype=torch.uint8, device=dev)
     fx, fy, cx, cy = _intrinsics(K)
     sched = (ctypes.c_int * C.POSE_OPT_ROUNDS)(*C.POSE_OPT_SCHEDULE)
-    ptr = [0 if t is None else t.data_ptr() for t in keep]
+    ptr = [0 if t is None else t.data_ptr() for t, _ in keep]
+    strides = (ctypes.c_longlong * 11)(*[st for _, st in keep])
     rc = _build.library().plslam_pose_lm(
-        *ptr[:6], N, *ptr[6:], L, fx, fy, cx, cy, float(bf), C.POSE_OPT_ROUNDS, sched,
+        *ptr[:6], N, *ptr[6:], L, P, strides, fx, fy, cx, cy, float(bf), C.POSE_OPT_ROUNDS, sched,
         Tcw.data_ptr(), pin.data_ptr(), lin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "pose_lm")
     pose_lm.launches += 1
-    if lines is None:
-        return Tcw, pin.view(torch.bool), None
-    lin = lin[:L].view(torch.bool)
-    if pose_lm.count_lines:
+    pin = pin.view(torch.bool)
+    lin = None if lines is None else lin[:, :L].view(torch.bool)
+    if lines is not None and pose_lm.count_lines:
         # launches fed at least one valid line row, and the line inliers
         # they returned, counted on the card (reading them is the caller's
         # host sync, not the step's); off by default: three small device
         # ops per launch
         pose_lm.line_launches = pose_lm.line_launches + lines.valid.any().to(torch.int32)
         pose_lm.line_inliers = pose_lm.line_inliers + torch.sum(lin & lines.valid).to(torch.int32)
-    return Tcw, pin.view(torch.bool), lin
+    if not batched:
+        return Tcw[0], pin[0], None if lin is None else lin[0]
+    return Tcw, pin, lin
 
 
 pose_lm.launches = 0
@@ -277,7 +337,8 @@ pose_lm.line_inliers = 0
 
 
 def pose_optimization(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):
-    """-> (Tcw f32[4,4], pt_inlier bool[N], line_inlier bool[L] | None).
+    """-> (Tcw f32[4,4], pt_inlier bool[N], line_inlier bool[L] | None), or
+    the same with a leading problem axis for stacked problems.
 
     B3 on CUDA tensors, the plain twin on CPU tensors. K is the host-side
     3x3 intrinsics (numpy or CPU tensor): the kernel takes them as

@@ -17,7 +17,7 @@ from plslam_tpu.geometry import camera as jcam
 from plslam_tpu.geometry import se3 as jse3
 from plslam_tpu.solvers import pose as jpose
 from plslam_tpu_torch.geometry import camera, se3
-from plslam_tpu_torch.io.synthetic import pose_problem
+from plslam_tpu_torch.io.synthetic import pose_problem, pose_problem_pair
 from plslam_tpu_torch.solvers import pose
 
 torch.set_num_threads(2)
@@ -54,16 +54,20 @@ def _scene(seed, n=1024, n_lines=128, noise_px=0.5, outlier_frac=0.1, stereo_fra
     return pts, lines, T
 
 
-def _solve_both(pts, lines, T0=None):
-    T0 = np.eye(4, dtype=np.float32) if T0 is None else T0
+def _solve_ref(pts, lines, T0):
     jl = None if lines is None else jpose.LineObs(*map(jnp.asarray, lines))
     Tj, pj, lj = jpose.pose_optimization(jnp.asarray(T0), jpose.PointObs(*map(jnp.asarray, pts)),
                                          jnp.asarray(K), BF, lines=jl)
+    return np.asarray(Tj), np.asarray(pj), None if lj is None else np.asarray(lj)
+
+
+def _solve_both(pts, lines, T0=None):
+    T0 = np.eye(4, dtype=np.float32) if T0 is None else T0
+    Tj, pj, lj = _solve_ref(pts, lines, T0)
     tl = None if lines is None else pose.LineObs(*map(torch.from_numpy, lines))
     Tt, pt, lt = pose.pose_optimization(torch.from_numpy(T0), pose.PointObs(*map(torch.from_numpy, pts)),
                                         K, BF, lines=tl)
-    return (np.asarray(Tj), np.asarray(pj), None if lj is None else np.asarray(lj)), \
-        (Tt.numpy(), pt.numpy(), None if lt is None else lt.numpy())
+    return (Tj, pj, lj), (Tt.numpy(), pt.numpy(), None if lt is None else lt.numpy())
 
 
 @pytest.mark.parametrize("case", ["points", "points+lines", "mono_only", "few_points+lines", "clean"])
@@ -96,6 +100,55 @@ def test_kernel_check_problem_matches_reference(with_lines):
     assert (pt != pj).sum() + (lt != lj).sum() <= 2
     assert not (pt & ~pb["pts"][4]).any() and lt.any() == with_lines
     assert np.abs(Tt[:3, 3] - [0.1, -0.08, 0.05]).max() < 0.02
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+def test_stacked_problems_equal_single_solves_and_reference(P):
+    """P stacked problems (B3's problem axis; the tracker stacks its
+    motion-model and fallback solves): one with valid lines, one whose
+    lines are all padded, one with every row padded. Each problem's result
+    equals its single-problem solve exactly and the reference's within
+    the file's tolerances."""
+    kinds = [dict(), dict(line_frac=0.0), dict(pad_frac=1.0, line_frac=0.0)][:P]
+    probs = [_scene(20 + k, n=256, n_lines=32, **kw)[:2] for k, kw in enumerate(kinds)]
+    stacked = [torch.from_numpy(np.stack([pr[j][i] for pr in probs])) for j in range(2) for i in range(5)]
+    T0 = np.eye(4, dtype=np.float32)
+    Tb, pb, lb = pose.pose_optimization(torch.from_numpy(np.stack([T0] * P)), pose.PointObs(*stacked[:5]), K, BF,
+                                        lines=pose.LineObs(*stacked[5:]))
+    assert Tb.shape == (P, 4, 4) and pb.shape == (P, 256) and lb.shape == (P, 32)
+    for p, (pts, lines) in enumerate(probs):
+        Ts, ps, ls = pose.pose_optimization(torch.from_numpy(T0), pose.PointObs(*map(torch.from_numpy, pts)), K, BF,
+                                            lines=pose.LineObs(*map(torch.from_numpy, lines)))
+        assert torch.equal(Tb[p], Ts) and torch.equal(pb[p], ps) and torch.equal(lb[p], ls)
+        Tj, pj, lj = _solve_ref(pts, lines, T0)
+        np.testing.assert_allclose(Tb[p].numpy(), Tj, atol=1e-4)
+        assert (pb[p].numpy() != pj).sum() <= 2 and (lb[p].numpy() != lj).sum() <= 2
+    assert lb[0].any() and not lb[1:].any()
+    if P == 3:  # every row padded: the solve keeps its start
+        np.testing.assert_array_equal(Tb[2].numpy(), T0)
+        assert not pb[2].any()
+
+
+def test_tracker_layout_equals_single_solves_and_reference():
+    """Two point-only problems laid out as the tracker's stacked call gives
+    them: start pose, obs, inverse sigma2 and stereo flags expanded along
+    the problem axis (stride 0), landmarks and valid flags per problem."""
+    pr = pose_problem_pair(np.random.default_rng(5), n=256)
+    T = torch.from_numpy
+    pts = pose.PointObs(T(pr["xw"]), T(pr["obs"]).expand(2, -1, -1), T(pr["isig"]).expand(2, -1),
+                        T(pr["stereo"]).expand(2, -1), T(pr["valid"]))
+    T0 = torch.eye(4).expand(2, 4, 4)
+    Tb, pb, lb = pose.pose_optimization(T0, pts, pr["K"], pr["bf"])
+    assert Tb.shape == (2, 4, 4) and pb.shape == (2, 256) and lb is None
+    for p in range(2):
+        one = [pr["xw"][p], pr["obs"], pr["isig"], pr["stereo"], pr["valid"][p]]
+        Ts, ps, _ = pose.pose_optimization(T0[p], pose.PointObs(*map(T, one)), pr["K"], pr["bf"])
+        assert torch.equal(Tb[p], Ts) and torch.equal(pb[p], ps)
+        Tj, pj, _ = _solve_ref(one, None, np.eye(4, dtype=np.float32))
+        np.testing.assert_allclose(Tb[p].numpy(), Tj, atol=1e-4)
+        assert (pb[p].numpy() != pj).sum() <= 2
+        assert np.abs(Tb[p, :3, 3].numpy() - [0.1, -0.08, 0.05]).max() < 0.02
+    assert not torch.equal(pb[0], pb[1])
 
 
 def test_all_rows_padded_keeps_the_init():
