@@ -5,7 +5,7 @@
 
 Phases, each timed and printed:
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the one nvcc call over plslam_tpu_torch/csrc/*.cu, with
+  2. build    one nvcc per plslam_tpu_torch/csrc/*.cu, all at once, with
               ptxas's report for every kernel (fails if B3 spills);
   3. kernels  each CUDA kernel at its main-path shapes against its plain
               PyTorch twin on the card (max abs error vs the stated
@@ -24,8 +24,20 @@ Phases, each timed and printed:
   6. slice-lines  the same for the point+line step (configs/TUM3.yaml, lines
               on, device LSD, 640x480): also map lines and line inliers per
               frame, and B3 fed valid line rows on every tracked frame.
-Then one JSON line with the kernels (launches: B1-B3 from slice-lines, B4
-from fast), and as the last line
+  7. system   the port's mapper-less System.track_rgbd on configs/TUM3.yaml
+              at 640x480: 20 frames of SyntheticSequence(seed=0,
+              motion_scale=6) three apart (~1.4 m of travel), 5 black
+              frames (LOST), then the camera back at the start for 10
+              frames (BoW + PnP relocalization onto the first keyframe,
+              then tracking; nearer the start, the step's own
+              reference-keyframe fallback recovers first):
+              states, ATE over tracked frames, one trajectory row per
+              tracked frame, one telemetry copy per frame, kernel launches
+              counted during exactly this run (B1 and B2 once per frame, B3
+              on the relocalization frame too), ms per frame, and the first
+              frames held against the port's CPU path.
+Then one JSON line with the kernels (launches: B1-B3 from system, the
+public entry; B4 from fast), and as the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
 failure exits non-zero; without CUDA the script exits non-zero at once.
 """
@@ -45,6 +57,10 @@ ROOT = Path(__file__).resolve().parent
 BUDGET_S = 300.0  # whole run, build included
 N_FRAMES = 30
 N_TIMED = 20
+# the system phase: frames SYS_STRIDE apart at SYS_MOTION times the
+# sequence's motion, a blackout, then the first frames again (on the CPU
+# path at 640x480 the relocalizer recovers on the first of them)
+SYS_BEFORE, SYS_BLACK, SYS_AFTER, SYS_STRIDE, SYS_MOTION = 20, 5, 10, 3, 6.0
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU clock ahead of each timed call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -201,6 +217,91 @@ def run_slice(name, settings, seq, frames, lines: bool):
     return launches
 
 
+def run_system(settings):
+    """System.track_rgbd over a blackout and a return to the start, on the
+    card; checked and printed. -> the kernel launches counted during
+    exactly this run."""
+    import torch
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.io.trajectory import load_trajectory_tum
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.solvers import pose as pose_mod
+    from plslam_tpu_torch.system import System
+
+    with Phase("system"):
+        seq = SyntheticSequence(n_frames=SYS_STRIDE * SYS_BEFORE, seed=0, settings=settings,
+                                motion_scale=SYS_MOTION)
+        before = [SYS_STRIDE * i for i in range(SYS_BEFORE)]
+        after = [SYS_STRIDE * i for i in range(SYS_AFTER)]
+        inputs = [seq.frame(i) for i in before]
+        g, d, t = inputs[-1]
+        inputs += [(np.zeros_like(g), d, t + 0.03 * (j + 1)) for j in range(SYS_BLACK)]
+        inputs += [(g, d, t + 2.0) for g, d, t in (seq.frame(i) for i in after)]
+        gt_index = before + [None] * SYS_BLACK + after
+        n = len(inputs)
+
+        slam = System(settings, use_local_mapping=False, use_loop_closing=False)
+        wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
+        for w in wrappers:
+            w.launches = 0
+        rows, ms_frame, b3 = [], [], []
+        for g, d, t in inputs:
+            b3_0 = pose_mod.pose_lm.launches
+            t0 = time.perf_counter()
+            Tcw = slam.track_rgbd(g, d, t)
+            torch.cuda.synchronize()
+            ms_frame.append((time.perf_counter() - t0) * 1e3)
+            b3.append(pose_mod.pose_lm.launches - b3_0)
+            rows.append((Tcw, slam.get_tracking_state()))
+        launches = {w.__name__: w.launches for w in wrappers}
+        reads = slam.telemetry_reads
+        traj = ROOT / ".torch_build" / "chip_smoke_trajectory.txt"
+        traj.parent.mkdir(parents=True, exist_ok=True)
+        slam.save_trajectory_tum(traj)
+        saved = load_trajectory_tum(traj)
+        slam.shutdown()
+
+        states = [st for _, st in rows]
+        log("state per call: " + " ".join(st[0] for st in states) + "  (O = OK, L = LOST)")
+        log("B3 launches per call: " + " ".join(map(str, b3)))
+        first_after = SYS_BEFORE + SYS_BLACK
+        reloc = next((k for k in range(first_after, n) if rows[k][0] is None and states[k] == "OK"), None)
+        tracked = [k for k in range(n) if rows[k][0] is not None]
+        est = [(float(k), np.linalg.inv(rows[k][0])) for k in tracked]
+        gt = [(float(k), seq.gt_pose_wc(gt_index[k])) for k in tracked]
+        ate, n_pairs = ate_rmse(est, gt)
+        ms_track = [ms_frame[k] for k in tracked]
+        log(f"relocalized on call {reloc} (first real frame after the blackout: {first_after}); "
+            f"tracked {len(tracked)}/{n}; ATE RMSE {ate * 100:.4f} cm over {n_pairs} tracked frames")
+        log(f"median {statistics.median(ms_track):.3f} ms per tracked frame; relocalization call "
+            f"{ms_frame[reloc] if reloc is not None else float('nan'):.3f} ms; blackout calls "
+            f"{statistics.median(ms_frame[SYS_BEFORE:first_after]):.3f} ms median")
+        log(f"launches during the run: {launches}; telemetry reads {reads} for {n} calls; "
+            f"{len(saved)} trajectory rows")
+        require(all(rows[k][0] is not None for k in range(SYS_BEFORE)), "a frame before the blackout was not tracked")
+        require(states[SYS_BEFORE:first_after] == ["LOST"] * SYS_BLACK, "not LOST through the blackout")
+        require(reloc is not None and reloc < first_after + 3, "not relocalized within 3 real frames")
+        require(all(rows[k][0] is not None for k in range(reloc + 1, n)), "a frame after relocalization was lost")
+        require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
+        require(len(saved) == len(tracked), "not one trajectory row per tracked frame")
+        require(launches["fast_blur_stack"] == n and launches["gather_patches"] == n,
+                "B1/B2 not launched once per frame")
+        require(b3[reloc] > 2, "B3 not launched by the relocalization")
+        require(reads == n, f"{reads} telemetry reads for {n} frames")
+
+        # the first frames against the port's CPU path
+        cpu = System(settings, use_local_mapping=False, use_loop_closing=False, device="cpu")
+        for k in range(3):
+            T_cpu = cpu.track_rgbd(*inputs[k])
+            dt = float(np.abs(T_cpu - rows[k][0]).max())
+            same = cpu.get_tracking_state() == states[k]
+            log(f"call {k} vs CPU path: state equal {same}, |dTcw| {dt:.2e}")
+            require(same and dt < 1e-3, "card and CPU paths disagree")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -212,7 +313,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from plslam_tpu_torch import _build, load_settings
     from plslam_tpu_torch import constants as C
-    from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem, pose_problem_pair
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence, patch_centres, pose_problem, pose_problem_pair
     from plslam_tpu_torch.ops import brief, fast, fast_cuda, patches, pyramid
     from plslam_tpu_torch.solvers import pose as pose_mod
 
@@ -313,11 +414,7 @@ def main() -> int:
 
         # B2 at K = 1000 centres on the blurred stack
         blur_flat = got[2].reshape(L * H, W).contiguous()
-        rng = np.random.default_rng(0)
-        lv = rng.integers(0, L, 1000)
-        hw = np.array(shapes)[lv]
-        yx = np.stack([lv * H + rng.integers(19, hw[:, 0] - 19), rng.integers(19, hw[:, 1] - 19)], -1)
-        yx_t = torch.from_numpy(yx.astype(np.int32)).to(dev)
+        yx_t = torch.from_numpy(patch_centres(np.random.default_rng(0), shapes, H)).to(dev)
         D = brief.PATCH_D
         got2 = patches.gather_patches(blur_flat, yx_t, D)
         ref2 = patches.gather_patches_plain(blur_flat, yx_t, D)
@@ -330,9 +427,21 @@ def main() -> int:
         ms2 = cuda_ms(torch, lambda: patches.gather_patches(blur_flat, yx_t, D))
         plain2 = cuda_ms(torch, lambda: patches.gather_patches_plain(blur_flat, yx_t, D))
         lib_ms2 = cuda_ms(torch, lambda: view[ys, xs])
+        # what one launch costs as timed here: B2 on a single window
+        one2 = cuda_ms(torch, lambda: patches.gather_patches(blur_flat, yx_t[:1], D))
+        # each window read once and written once (the bound kept from the first kernel) ...
         b_ms2, b_by2 = bound_ms(2 * got2.numel() * 4 + yx_t.numel() * 4, 0)
+        # ... and the least: the patches written plus each stack pixel that
+        # some window covers, read once (windows of one level overlap)
+        ar = torch.arange(D, device=dev)
+        touched = torch.zeros(L * H, W, dtype=torch.bool, device=dev)
+        touched[(ys[:, None] + ar)[:, :, None], (xs[:, None] + ar)[:, None, :]] = True
+        n_touched = int(touched.sum())
+        b_ms2_lo, _ = bound_ms(got2.numel() * 4 + n_touched * 4 + yx_t.numel() * 4, 0)
         log(f"B2 gather_patches: max_abs_err {err2:.3e} (tol {TOL_B2}), {ms2:.4f} ms, plain {plain2:.4f} ms, "
-            f"unfold-index {lib_ms2:.4f} ms, bound {b_ms2:.4f} ms ({b_by2})")
+            f"unfold-index {lib_ms2:.4f} ms, bound {b_ms2:.4f} ms ({b_by2}: windows read and written); "
+            f"{n_touched} distinct stack pixels -> bound {b_ms2_lo:.4f} ms (patches written, distinct pixels read); "
+            f"share of bound {b_ms2 / ms2:.0%} / {b_ms2_lo / ms2:.0%}; one window {one2:.4f} ms")
         require(err2 <= TOL_B2, "B2 disagrees with its plain twin")
         kernels["gather_patches"] = dict(
             name="gather_patches", route="cuda", source="plslam_tpu_torch/csrc/patches.cu",
@@ -448,8 +557,8 @@ def main() -> int:
     lines_settings = load_settings(ROOT / "configs" / "TUM3.yaml")
     require(lines_settings.use_lines and lines_settings.line_backend == "device", "TUM3 should run device lines")
     lseq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=lines_settings)
-    launches = run_slice("slice-lines", lines_settings, lseq, [lseq.frame(i) for i in range(N_FRAMES)], lines=True)
-    for name, n in launches.items():
+    run_slice("slice-lines", lines_settings, lseq, [lseq.frame(i) for i in range(N_FRAMES)], lines=True)
+    for name, n in run_system(lines_settings).items():
         kernels[name]["launches"] = n
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

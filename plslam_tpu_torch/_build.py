@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources go through ONE nvcc call into one shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so the
-build takes seconds). The library lands in `.torch_build/` beside the
-package, named by a hash of the sources and flags, and is built at first
-use; a process builds it at most once. Every C entry returns
+Each `csrc/*.cu` source is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library lands in `.torch_build/` beside the package, named
+by a hash of the sources and flags, and is built at first use; a process
+builds it at most once. Every C entry returns
 `cudaGetLastError()` after its launch and `check` raises on a non-zero
 code.
 """
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / ".torch_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -80,17 +81,31 @@ def build() -> Path:
                           log=report.read_text() if report.exists() else "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    report.write_text(log)  # before the library: a cached library always has its report
-    os.replace(tmp, out)  # atomic: a concurrent builder never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        # one nvcc per source, all at once; then one link
+        jobs = []
+        for src in sources():
+            obj = Path(work) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                    text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = Path(work) / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        report.write_text(log)  # before the library: a cached library always has its report
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     last_build.update(seconds=time.perf_counter() - t0, path=str(out), cached=False, log=log)
     return out
 

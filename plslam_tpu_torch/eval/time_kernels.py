@@ -9,6 +9,11 @@ call, as chip_smoke.py times), at the main path's shapes:
   B1  fast_blur_stack on the 8-level pyramid of a 640x480 synthetic frame
       (configs/TUM1.yaml);
   B4  fast_scores on that frame;
+  B2  gather_patches: 1,000 39x39 windows of that frame's 8-level stack
+      (io/synthetic.py patch_centres, the centres of chip_smoke.py), and
+      one window (what a launch costs as timed here);
+  floor  PyTorch's own fill of one float, the least any launch reads
+      as timed here;
   B3  pose_lm at N = 1024, L = 128 (io/synthetic.py pose_problem) with
       valid lines, without, and with no valid row (its latency floor);
       one point-only problem; and the tracker's two point-only problems
@@ -44,7 +49,7 @@ def _inputs(path: Path):
 
     sys.path.insert(0, str(ROOT))
     from plslam_tpu_torch import load_settings
-    from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem, pose_problem_pair
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence, patch_centres, pose_problem, pose_problem_pair
     from plslam_tpu_torch.ops import pyramid
 
     s = load_settings(ROOT / "configs" / "TUM1.yaml")
@@ -52,10 +57,12 @@ def _inputs(path: Path):
     stack = pyramid.build_pyramid_stack(torch.from_numpy(gray), s.n_levels, s.scale_factor)
     pb = pose_problem(np.random.default_rng(1), with_lines=True)
     pr = pose_problem_pair(np.random.default_rng(1))
+    shapes = pyramid.level_shapes(s.height, s.width, s.n_levels, s.scale_factor)
+    yx = patch_centres(np.random.default_rng(0), shapes, s.height)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, gray=gray, stack=stack.numpy(),
              level_hw=np.array(pyramid.level_shapes(s.height, s.width, s.n_levels, s.scale_factor)),
-             th=np.array([s.ini_th_fast, s.min_th_fast], np.float32), K=pb["K"], bf=np.float32(pb["bf"]),
+             th=np.array([s.ini_th_fast, s.min_th_fast], np.float32), patch_yx=yx, K=pb["K"], bf=np.float32(pb["bf"]),
              **{f"pts{i}": a for i, a in enumerate(pb["pts"])}, **{f"lines{i}": a for i, a in enumerate(pb["lines"])},
              **{f"pair_{k}": pr[k] for k in ("xw", "valid", "obs", "isig", "stereo")})
 
@@ -66,7 +73,7 @@ def _worker(tree: Path, inputs: Path, reps: int) -> dict:
     import torch
 
     import plslam_tpu_torch
-    from plslam_tpu_torch.ops import fast_cuda
+    from plslam_tpu_torch.ops import fast_cuda, patches
     from plslam_tpu_torch.solvers import pose
 
     if Path(plslam_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
@@ -89,6 +96,8 @@ def _worker(tree: Path, inputs: Path, reps: int) -> dict:
         return statistics.median(times)
 
     stack, gray = T("stack"), T("gray")
+    flat, patch_yx = stack.reshape(-1, stack.shape[-1]), T("patch_yx")
+    one_float = torch.empty(1, device=dev)
     shapes = [tuple(int(v) for v in hw) for hw in d["level_hw"]]
     ini, mn = (float(v) for v in d["th"])
     K, bf = d["K"], float(d["bf"])
@@ -110,6 +119,9 @@ def _worker(tree: Path, inputs: Path, reps: int) -> dict:
     out = {
         "B1": cuda_ms(lambda: fast_cuda.fast_blur_stack(stack, shapes, ini, mn)),
         "B4": cuda_ms(lambda: fast_cuda.fast_scores(gray, ini, mn)),
+        "B2": cuda_ms(lambda: patches.gather_patches(flat, patch_yx, 39)),
+        "B2_one_window": cuda_ms(lambda: patches.gather_patches(flat, patch_yx[:1], 39)),
+        "floor_fill_one_float": cuda_ms(lambda: one_float.fill_(0.0)),
         "B3_lines_valid": cuda_ms(lambda: pose.pose_lm(T0, pts, K, bf, lines)),
         "B3_no_valid_line": cuda_ms(lambda: pose.pose_lm(T0, pts, K, bf, no_line)),
         "B3_no_valid_row": cuda_ms(lambda: pose.pose_lm(T0, no_row, K, bf, no_line)),

@@ -60,7 +60,7 @@ class FrameBuilder:
         if settings.use_lines and settings.line_backend != "device":
             raise NotImplementedError(
                 f"line_backend {settings.line_backend!r}: the port detects lines on the device only; "
-                "the host LSD (native/lsd.cpp) is not ported yet")
+                "the host LSD (native/lsd.cpp) is not ported yet (ROADMAP A21)")
         self.s = settings
         self.device = resolve_device(device)
         self.extractor = ORBExtractor(

@@ -166,3 +166,18 @@ def to_quat_xyzw(R):
     q = torch.gather(cands, -2, k[..., None, None].expand(k.shape + (1, 4)))[..., 0, :]
     q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def from_quat_xyzw(q, t):
+    """Quaternion (x, y, z, w) + translation -> [..., 4, 4]."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + _EPS)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+            torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+            torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        -2,
+    )
+    return from_rt(R, t)

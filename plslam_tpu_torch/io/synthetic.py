@@ -399,3 +399,14 @@ def pose_problem_pair(rng, n=1024):
     valid1 = valid & (rng.uniform(size=n) > 0.2)
     return dict(K=pb["K"], bf=pb["bf"], xw=np.stack([xw, xw1]), valid=np.stack([valid, valid1]),
                 obs=obs, isig=isig, stereo=stereo)
+
+
+def patch_centres(rng, shapes, H, n=1000, size=39):
+    """n keypoint centres on the flattened 8-level stack, as kernel B2 takes
+    them (row = level * H + y): a uniform level, then a centre at least
+    size // 2 from that level's edges. shapes: [(h, w)] per level.
+    -> i32[n, 2]."""
+    r = size // 2
+    lv = rng.integers(0, len(shapes), n)
+    hw = np.array(shapes)[lv]
+    return np.stack([lv * H + rng.integers(r, hw[:, 0] - r), rng.integers(r, hw[:, 1] - r)], -1).astype(np.int32)

@@ -3,12 +3,13 @@
 Replaces `gather_patches_pallas` (plslam_tpu/ops/patches.py:44, its inner
 `kernel`, used at plslam_tpu/features/orb.py:168-176). CUDA source:
 csrc/patches.cu. The TPU kernel DMA'd tile-aligned bf16 [48, 256] windows
-and rotated them in registers to satisfy (8, 128) tiling; here one block
-per keypoint does coalesced row loads and writes f32[K, 39, 39], equal to
-the plain `dynamic_slice` gather (plslam_tpu/ops/patches.py:29-40), start
-rules included. It is
-bound by memory traffic: K x 39 x 39 floats read and written, ~12 MB at
-K = 1000, ~4 us at 3.35 TB/s.
+and rotated them in registers to satisfy (8, 128) tiling; here the
+output f32[K, 39, 39] is written as one flat array of float4 groups, each
+warp loading a tile lane-contiguously with 8 loads per lane in flight and
+storing it from shared memory, on a grid sized from the work and the
+card. It equals the plain `dynamic_slice` gather
+(plslam_tpu/ops/patches.py:29-40), start rules included. It is bound by memory traffic: K x 39 x 39 floats read and
+written, ~12 MB at K = 1000, ~4 us at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -45,10 +46,12 @@ def gather_patches(img, yx, size: int):
 
     H, W = img.shape
     if (img.device.type != "cuda" or img.dtype != torch.float32 or yx.device != img.device
-            or yx.ndim != 2 or yx.shape[1] != 2 or not (0 < size <= min(H, W))):
-        raise ValueError("gather_patches wants CUDA f32[H, W] and i32[K, 2] on one device")
+            or yx.ndim != 2 or yx.shape[1] != 2 or size != 39 or size > min(H, W)):
+        raise ValueError("gather_patches wants CUDA f32[H, W], i32[K, 2] on one device and size 39 <= H, W")
     img = img.contiguous()
     yx = yx.to(torch.int32).contiguous()
+    if yx.data_ptr() % 8:  # the kernel reads each centre as one int2
+        yx = yx.clone()
     K = yx.shape[0]
     out = torch.empty((K, size, size), dtype=torch.float32, device=img.device)
     rc = _build.library().plslam_gather_patches(

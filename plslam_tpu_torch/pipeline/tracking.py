@@ -12,8 +12,9 @@ Differences in mechanism (results are the reference's):
   * The reference's `lax.cond`s: the ref-KF fallback (tracking.py:700) is
     computed beside the motion-model result and picked with `torch.where`.
     The init/track switch (:871) and the in-step working-set refresh
-    (:908) are host branches on a device flag: two host synchronisations
-    per frame, which block CUDA-graph capture of the step.
+    (:908, only with `in_step_local_refresh`) are host branches on a device
+    flag: up to two host synchronisations per frame, which block
+    CUDA-graph capture of the step.
   * Scatters with `mode="drop"` route out-of-range rows to a scratch row;
     among duplicate targets the last source row wins, as on the
     reference's CPU backend.
@@ -185,8 +186,12 @@ class Tracker:
         max_feat: int = C.MAX_FEAT,
         max_lines: int = C.MAX_LINES,
         max_maplines: int = C.MAX_MAPLINES,
+        in_step_local_refresh: bool = True,
         device="cuda",
     ):
+        """in_step_local_refresh: recompute the TrackLocalMap working set
+        inside the step on keyframe frames. A caller that refreshes it
+        itself after changing the map (`refresh_local_set`) sets it False."""
         self.s = settings
         self.device = resolve_device(device)
         K, _ = settings.intrinsics()
@@ -201,6 +206,7 @@ class Tracker:
         self.log_scale = float(np.log(settings.scale_factor))
         self.kf_max_frames = int(round(settings.fps))
         self.ws_cap = min(C.LOCAL_SET_CAP, max_pts)
+        self.in_step_local_refresh = bool(in_step_local_refresh)
         self.inv_sigma2 = torch.from_numpy(inv_sigma2_table(settings.n_levels, settings.scale_factor)).to(self.device)
 
     # ------------------------------------------------------------ helpers
@@ -390,6 +396,12 @@ class Tracker:
         ws = torch.full((self.ws_cap + 1,), -1, dtype=torch.int32, device=self.device)
         ws.scatter_(0, tgt, torch.arange(P, dtype=torch.int32, device=self.device))
         return ws[: self.ws_cap]
+
+    def refresh_local_set(self, ts: TrackState) -> TrackState:
+        """The working set recomputed around the current reference keyframe,
+        for callers that change the map outside the step (System after a
+        relocalization). Device work only, no host sync."""
+        return ts._replace(local_set=self._compute_local_set(ts.m, ts.ref_kf))
 
     # ------------------------------------------------------------ project
     def _project_points_subset(self, pos, normal, dist_band, valid, Tcw):
@@ -644,8 +656,9 @@ class Tracker:
         ref_kf = torch.where(did_insert, k, ts.ref_kf)
         local_set = ts.local_set
         # host branch (the reference's lax.cond at tracking.py:908): the
-        # covisibility scan runs on keyframe frames only
-        if bool(did_insert):
+        # covisibility scan runs on keyframe frames only; callers that
+        # refresh the set themselves skip it (and the sync)
+        if self.in_step_local_refresh and bool(did_insert):
             local_set = self._compute_local_set(m, k)
         last_new = LastFrame(
             uvr=frame.uvr, octave=frame.octave, angle=frame.angle,

@@ -107,6 +107,35 @@ def test_b2_gather_patches(dev):
         patches.gather_patches(img.double(), yx, brief.PATCH_D)
 
 
+@pytest.mark.parametrize("K", [1, 31, 1000, 1024])
+def test_b2_ragged_counts_and_edges(dev, K):
+    """Counts whose K * 39 * 39 floats end inside a float4 group (1, 31,
+    1000, 1024: remainders 1, 3, 0, 0), windows at the clamp edges of the
+    flattened stack, and padded slots whose start is negative (it wraps
+    once by the dimension, then clamps)."""
+    rng = np.random.default_rng(K)
+    rows, cols, r = 8 * 480, 640, brief.PATCH_D // 2
+    img = torch.from_numpy(rng.uniform(0, 255, (rows, cols)).astype(np.float32)).to(dev)
+    yx = np.stack([rng.integers(r, rows - r, K), rng.integers(r, cols - r, K)], -1)
+    edges = np.array([[r, r], [rows - r - 1, cols - r - 1], [r, cols - r - 1], [rows - r - 1, r],
+                      [0, 0], [-7, 3], [5, -40], [rows + 3, cols + 9]])
+    yx[: min(K, len(edges))] = edges[:K]
+    if K > len(edges):
+        yx[-1] = [0, 0]  # a padded slot last
+    yx = torch.from_numpy(yx.astype(np.int32)).to(dev)
+    n0 = patches.gather_patches.launches
+    got = patches.gather_patches(img, yx, brief.PATCH_D)
+    torch.cuda.synchronize()
+    assert patches.gather_patches.launches == n0 + 1
+    assert got.shape == (K, brief.PATCH_D, brief.PATCH_D)
+    assert torch.equal(got, patches.gather_patches_plain(img, yx, brief.PATCH_D))
+    # a view whose data pointer is not 8-byte aligned takes a copy first
+    pair = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), yx.reshape(-1)])[1:].reshape(K, 2)
+    assert torch.equal(patches.gather_patches(img, pair, brief.PATCH_D), got)
+    with pytest.raises(ValueError):  # the kernel is built for 39x39 windows only
+        patches.gather_patches(img, yx, 15)
+
+
 @pytest.mark.parametrize("with_lines", [False, True])
 def test_b3_pose_lm(dev, with_lines):
     pb = pose_problem(np.random.default_rng(7), with_lines=with_lines)
