@@ -36,6 +36,18 @@ Phases, each timed and printed:
               counted during exactly this run (B1 and B2 once per frame, B3
               on the relocalization frame too), ms per frame, and the first
               frames held against the port's CPU path.
+  8. mapping  System with the local mapper, 30 frames of
+              SyntheticSequence(seed=0) at 640x480 and full capacities:
+              configs/TUM1.yaml with every default (depth beyond 3 m cut,
+              so the chains triangulate points) and configs/TUM3.yaml with
+              loop closing off (map lines): every frame tracked, ATE, one
+              keyframe chain per keyframe run under CUDA's sync debug mode
+              "error", one telemetry read per call and one aux read per
+              chain, landmarks triangulated and a window pose moved by
+              local BA, B1-B3 launched; ms per call and per chain; one
+              chain replayed under torch.profiler (launches, device-busy
+              time, launches by stage) and held bit for bit to the run's
+              own; the first triangulating chain held against the CPU path.
 Then one JSON line with the kernels (launches: B1-B3 from system, the
 public entry; B4 from fast), and as the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
@@ -61,6 +73,9 @@ N_TIMED = 20
 # sequence's motion, a blackout, then the first frames again (on the CPU
 # path at 640x480 the relocalizer recovers on the first of them)
 SYS_BEFORE, SYS_BLACK, SYS_AFTER, SYS_STRIDE, SYS_MOTION = 20, 5, 10, 3, 6.0
+# the mapping phase
+MAP_FRAMES = 30
+MAP_DEPTH_RANGE = 3.0  # metres, TUM1 run only
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU clock ahead of each timed call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -80,6 +95,21 @@ TOL_B4 = 1e-2
 TOL_B2 = 0.0
 TOL_B3_POSE = 1e-4
 TOL_B3_FLIPS = 2
+# A keyframe chain on the card against the CPU path from one pre-chain
+# state: every index, flag, counter and descriptor equal; local BA's plain
+# LM phase follows float32 rounding (cuBLAS and the CPU's BLAS sum the
+# normal equations in other orders), and weakly constrained landmarks move
+# with it (tests/test_torch_mapping.py measures the same against the
+# reference): keyframe poses to 5e-3, point positions to a median of 1 mm
+# and a 99th percentile of 1 cm. The chain uses no atomics on floats, so a
+# replay of a chain on the card from its pre-chain state is held to the
+# run's own chain bit for bit.
+TOL_CHAIN_POSE = 5e-3
+TOL_CHAIN_PT_MEDIAN = 1e-3
+TOL_CHAIN_PT_P99 = 1e-2
+CHAIN_EXACT = ("kf_valid", "kf_frame_id", "kf_seq", "kf_feat_valid", "kf_lm_idx", "kf_ln_idx", "kf_ln_valid",
+               "pt_desc", "pt_valid", "pt_ref_kf", "pt_first_kf", "pt_first_seq", "pt_nobs", "pt_replaced",
+               "ln_desc", "ln_valid", "ln_ref_kf", "ln_first_seq", "ln_nobs", "n_kf", "n_pt", "n_ln")
 
 
 class Failed(Exception):
@@ -299,6 +329,217 @@ def run_system(settings):
             same = cpu.get_tracking_state() == states[k]
             log(f"call {k} vs CPU path: state equal {same}, |dTcw| {dt:.2e}")
             require(same and dt < 1e-3, "card and CPU paths disagree")
+    return launches
+
+
+def _to(ts, device):
+    """A TrackState's tensors on `device` (copies)."""
+    return type(ts)(*(_to(f, device) if isinstance(f, tuple) else f.to(device, copy=True) for f in ts))
+
+
+def _triangulated(m, k):
+    """(points, map lines) the keyframe chain of keyframe k created: points
+    bound to a depthless feature of k (insertion takes depth), and map lines
+    created with k and bound in another keyframe's row (insertion binds k's
+    row only). numpy map."""
+    lm = m.kf_lm_idx[k]
+    lmc = np.clip(lm, 0, None)
+    pts = int(np.sum((lm >= 0) & (m.kf_uv[k, :, 2] < 0) & m.pt_valid[lmc] & (m.pt_first_seq[lmc] == m.kf_seq[k])))
+    rows = (m.kf_ln_idx >= 0) & m.kf_ln_valid & m.kf_valid[:, None]
+    rows[k] = False
+    seen = np.zeros_like(m.ln_valid)
+    seen[m.kf_ln_idx[rows]] = True
+    return pts, int(np.sum(m.ln_valid & (m.ln_first_seq == m.kf_seq[k]) & seen))
+
+
+def _differing(a, b, prefix=""):
+    """Names of the fields of two TrackStates that are not bit for bit
+    equal (NaN equal to NaN)."""
+    import torch
+
+    out = []
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, tuple):
+            out += _differing(x, y, f"{prefix}{name}.")
+        elif not (torch.equal(x, y) or (x.is_floating_point() and x.shape == y.shape
+                                        and bool(torch.all((x == y) | (x.isnan() & y.isnan()))))):
+            out.append(prefix + name)
+    return out
+
+
+def _ranged(name, fn, args):
+    """fn(*args) inside a profiler range named "stage:<name>"."""
+    import torch
+
+    with torch.profiler.record_function(f"stage:{name}"):
+        return fn(*args)
+
+
+def run_mapping(name, settings, depth_range=None, **kw):
+    """System(settings, **kw) with the local mapper over MAP_FRAMES frames on
+    the card, checked and printed; -> the kernel launches counted during
+    exactly this run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.eval.profile_step import _busy_us
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.solvers import pose as pose_mod
+    from plslam_tpu_torch.system import System
+
+    numpy_map = lambda m: m._replace(**{f: getattr(m, f).cpu().numpy() for f in m._fields})  # noqa: E731
+    with Phase(name):
+        seq = SyntheticSequence(n_frames=MAP_FRAMES, seed=0, settings=settings)
+        inputs = []
+        for g, d, t in (seq.frame(i) for i in range(MAP_FRAMES)):
+            if depth_range is not None:
+                d = np.where(d > depth_range, 0.0, d).astype(np.float32)
+            inputs.append((g, d, t))
+        slam = System(settings, **kw)
+        require(slam._mapper is not None and not slam.use_loop_closing, "not the mapper-on, loop-closing-off System")
+        chains = []
+        dispatch = slam._dispatch_kf_chain
+
+        def watched(kf_id):
+            """The chain as System runs it, with CUDA's sync debug mode set to
+            "error" inside it; timed between two synchronisations."""
+            pre, pre_bow = slam.state, slam._reloc.kf_bow.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                aux = dispatch(kf_id)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            chains.append(dict(kf_id=kf_id, ms=(time.perf_counter() - t0) * 1e3, pre=pre, pre_bow=pre_bow,
+                               post=slam.state))
+            return aux
+
+        slam._dispatch_kf_chain = watched
+        wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
+        for w in wrappers:
+            w.launches = 0
+        rows, ms_call = [], []
+        for g, d, t in inputs:
+            t0 = time.perf_counter()
+            Tcw = slam.track_rgbd(g, d, t)
+            torch.cuda.synchronize()
+            ms_call.append((time.perf_counter() - t0) * 1e3)
+            rows.append((Tcw, slam.get_tracking_state(), slam.last_frame_was_kf))
+        launches = {w.__name__: w.launches for w in wrappers}
+        n = len(inputs)
+
+        tracked = [k for k in range(n) if rows[k][0] is not None]
+        ate, n_pairs = ate_rmse([(seq.timestamp(k), np.linalg.inv(rows[k][0])) for k in tracked], seq.gt_trajectory())
+        n_kf_frames = sum(r[2] for r in rows)
+        made, moved = [], []
+        for c in chains:
+            pre, post = numpy_map(c["pre"].m), numpy_map(c["post"].m)
+            made.append(_triangulated(post, c["kf_id"]))
+            base = _triangulated(pre, c["kf_id"])
+            made[-1] = (made[-1][0] - base[0], made[-1][1])
+            moved.append(float(np.abs(post.kf_pose - pre.kf_pose)[post.kf_valid & pre.kf_valid].max()))
+            c["tri"] = made[-1]
+        key = [k for k in range(n) if rows[k][2]]
+        log("state per call: " + " ".join(r[1][0] for r in rows) + "  (O = OK, L = LOST); keyframes on " + str(key))
+        log(f"tracked {len(tracked)}/{n}; ATE RMSE {ate * 100:.4f} cm over {n_pairs} frames; "
+            f"{int(slam.state.m.n_kf)} keyframes, {int(slam.state.m.n_pt)} points, {int(slam.state.m.n_ln)} map lines")
+        log("chains (keyframe: ms, points / map lines triangulated, largest window pose move): "
+            + "; ".join(f"{c['kf_id']}: {c['ms']:.2f} ms, {c['tri'][0]} / {c['tri'][1]}, {mv:.2e}"
+                        for c, mv in zip(chains, moved)))
+        plain = [ms_call[k] for k in tracked if not rows[k][2]]
+        log(f"median {statistics.median([ms_call[k] for k in tracked]):.3f} ms per tracked call "
+            f"({statistics.median(plain):.3f} ms without a keyframe); median "
+            f"{statistics.median([c['ms'] for c in chains]):.3f} ms per keyframe chain "
+            f"(first {chains[0]['ms']:.3f} ms)")
+        log(f"launches during the run: {launches}; telemetry reads {slam.telemetry_reads} for {n} calls; "
+            f"aux reads {slam.aux_reads} for {len(chains)} chains")
+        require(len(tracked) == n and all(r[1] == "OK" for r in rows), "a frame was not tracked")
+        require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
+        require(int(slam.state.m.n_kf) >= 2 and len(chains) == n_kf_frames >= 2, "not one chain per keyframe")
+        require(slam.telemetry_reads == n and slam.aux_reads == len(chains), "not one read per call and per chain")
+        require(sum(p + q for p, q in made) > 0, "the mapper triangulated nothing")
+        require(max(moved) > 0.0, "local BA moved no window pose")
+        require(launches["fast_blur_stack"] == n and launches["gather_patches"] == n and launches["pose_lm"] > 0,
+                "B1/B2 not launched once per call, or B3 not at all")
+
+        # one chain under the profiler: the run's last chain replayed from
+        # its pre-chain state (the run's own state is not touched), each
+        # mapper stage inside a profiler range of its own
+        last = chains[-1]
+        slam._reloc.kf_bow = last["pre_bow"].clone()
+        mapper = slam._mapper
+        stages = {"cull": mapper, "triangulate": mapper, "triangulate_lines": mapper, "fuse": mapper,
+                  "fuse_lines": mapper, "targets": mapper, "fuse_subset": mapper, "refresh": mapper,
+                  "refresh_lines": mapper, "kf_cull": mapper, "ensure_free_slot": mapper, "run": mapper._ba}
+        for st, owner in stages.items():
+            attr = "run" if owner is mapper._ba else f"_{st}_impl"
+            fn = getattr(owner, attr)
+            setattr(owner, attr, lambda *a, _fn=fn, _st=st: _ranged(_st, _fn, a))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            replay, _ = slam._kf_chain(last["pre"], last["kf_id"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        for st, owner in stages.items():
+            delattr(owner, "run" if owner is mapper._ba else f"_{st}_impl")
+        apart = _differing(replay, last["post"])
+        log(f"the replayed chain against the run's own: fields not bit for bit equal {apart or 'none'}")
+        require(not apart, "the card's chain does not repeat itself")
+        # the stage ranges also appear on the device's timeline: not work
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("stage:")]
+        require(bool(on_card), "the profiler recorded no device activity")
+        copies = [e for e in on_card if e.name.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in on_card if not e.name.startswith(("Memcpy", "Memset"))]
+        busy = _busy_us([(e.time_range.start, e.time_range.end) for e in on_card]) / 1e3
+        log(f"one chain (keyframe {last['kf_id']}) under the profiler: {len(kernels)} kernel launches, "
+            f"{len(copies)} copies, {busy:.3f} ms device-busy in {wall:.3f} ms, idle {1.0 - busy / wall:.1%}")
+        by_name = {}
+        for e in kernels:
+            t = by_name.setdefault(e.name[:60], [0, 0.0])
+            t[0] += 1
+            t[1] += (e.time_range.end - e.time_range.start) / 1e3
+        log("  kernels with the most device time (launches, ms): " + "; ".join(
+            f"{k} ({v[0]}, {v[1]:.3f})" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]))
+        # launches by stage: the host's kernel-launch calls inside each range
+        cpu_events = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+        launch_at = [e.time_range.start for e in cpu_events if "LaunchKernel" in e.name]
+        per_stage = {}
+        for e in cpu_events:
+            if e.name.startswith("stage:"):
+                n_in = sum(e.time_range.start <= t <= e.time_range.end for t in launch_at)
+                per_stage[e.name[6:]] = per_stage.get(e.name[6:], 0) + n_in
+        per_stage["rest of the chain"] = len(launch_at) - sum(per_stage.values())
+        log("  kernel launches by stage (local BA is `run`): "
+            + ", ".join(f"{k} {v}" for k, v in per_stage.items()))
+
+        # the first chain that triangulates, on the CPU path from the same state
+        first = next((c for c in chains if sum(c["tri"]) > 0), None)
+        require(first is not None, "no chain triangulated")
+        cpu = System(settings, device="cpu", **kw)
+        cpu._reloc.kf_bow = first["pre_bow"].cpu()
+        ts, _ = cpu._kf_chain(_to(first["pre"], "cpu"), first["kf_id"])
+        got, want = numpy_map(ts.m), numpy_map(first["post"].m)
+
+        def entries(f):  # entries that differ (rows of a descriptor table)
+            d = np.asarray(getattr(got, f) != getattr(want, f))
+            return int(d.reshape(d.shape[0], -1).any(1).sum()) if f.endswith("desc") else int(d.sum())
+
+        differ = {f: entries(f) for f in CHAIN_EXACT if entries(f)}
+        dpose = float(np.abs(got.kf_pose - want.kf_pose).max())
+        dp = np.linalg.norm(got.pt_pos - want.pt_pos, axis=1)[want.pt_valid]
+        log(f"chain of keyframe {first['kf_id']} vs CPU path: entries differing {differ or 'none'} (tol 0); "
+            f"|dTcw| {dpose:.2e} (tol {TOL_CHAIN_POSE}); point positions median {np.median(dp):.2e} m, "
+            f"99th percentile {np.percentile(dp, 99):.2e} m, max {dp.max():.2e} m")
+        require(not differ and dpose <= TOL_CHAIN_POSE and np.median(dp) <= TOL_CHAIN_PT_MEDIAN
+                and np.percentile(dp, 99) <= TOL_CHAIN_PT_P99, "card and CPU chains disagree")
+        require(np.array_equal(ts.local_set.numpy(), first["post"].local_set.cpu().numpy()),
+                "card and CPU working sets disagree")
     return launches
 
 
@@ -560,6 +801,8 @@ def main() -> int:
     run_slice("slice-lines", lines_settings, lseq, [lseq.frame(i) for i in range(N_FRAMES)], lines=True)
     for name, n in run_system(lines_settings).items():
         kernels[name]["launches"] = n
+    run_mapping("mapping TUM1", settings, depth_range=MAP_DEPTH_RANGE)
+    run_mapping("mapping TUM3", lines_settings, use_loop_closing=False)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

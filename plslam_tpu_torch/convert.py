@@ -61,13 +61,15 @@ def frame_from_numpy(d, device="cuda") -> FrameData:
 
 
 def system_from_numpy(system, state, kf_bow, timestamps, rel_poses, ref_ids, tracked, kf_timestamps,
-                      last_status):
+                      last_status, recent_rebase=None):
     """Load a reference `System`'s state into a port `System`: its
     TrackState (numpy leaves), its relocalizer's BoW rows (`kf_bow`,
     f32[max_kf, W]) and its host bookkeeping (`_timestamps`, `_rel_poses`,
-    `_ref_ids`, `_tracked`, `_kf_timestamps`, `_last_status`), so that both
-    continue from one state. The port's System has no past frame to
-    relocalize until its next track_rgbd."""
+    `_ref_ids`, `_tracked`, `_kf_timestamps`, `_last_status`, and the
+    culled-keyframe substitutions `_recent_rebase`: slot -> (surviving
+    slot, 4x4 rebase transform)), so that both continue from one state.
+    The port's System has no past frame to relocalize until its next
+    track_rgbd."""
     system.state = track_state_from_numpy(state, system.device)
     system._reloc.load_database(np.asarray(kf_bow, np.float32))
     system._timestamps = [float(t) for t in timestamps]
@@ -76,6 +78,8 @@ def system_from_numpy(system, state, kf_bow, timestamps, rel_poses, ref_ids, tra
     system._tracked = [bool(f) for f in tracked]
     system._kf_timestamps = {int(k): float(t) for k, t in dict(kf_timestamps).items()}
     system._last_status = int(last_status)
+    system._recent_rebase = {int(j): (int(p), np.asarray(M, np.float64).reshape(4, 4))
+                             for j, (p, M) in dict(recent_rebase or {}).items()}
     system._last_frame = None
     system.localization_only = bool(np.asarray(_fields(state)["only_tracking"]))
     return system

@@ -98,7 +98,7 @@ def from_rt(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0  # filled on the device: no host-made tensor, no blocking copy
+    bottom[..., 0, 3].fill_(1.0)  # a fill kernel: assigning a Python number copies it from the host
     return torch.cat([torch.cat([R, t[..., None]], -1), bottom], -2)
 
 

@@ -106,11 +106,17 @@ def match_descriptors(
     nn_ratio: float | None = C.NN_RATIO_DEFAULT,
     angle_a=None,
     angle_b=None,
+    pair_mask=None,
 ):
-    """Brute-force matching with ratio test + mutual check.
-    Returns match_b i32[A] (index into b, -1 unmatched), dist f32[A]."""
+    """Brute-force matching with ratio test + mutual check; `pair_mask`
+    bool[A, B] gates pairs further (the epipolar constraint of
+    SearchForTriangulation). Returns match_b i32[A] (index into b, -1
+    unmatched), dist f32[A]."""
     D = hamming_matrix(pm1_a, pm1_b)
-    Dm = torch.where(valid_a[:, None] & valid_b[None, :], D, BIG)
+    pair_ok = valid_a[:, None] & valid_b[None, :]
+    if pair_mask is not None:
+        pair_ok = pair_ok & pair_mask
+    Dm = torch.where(pair_ok, D, BIG)
     best, second, best_b = best_two(Dm, axis=1)
     ok = best < th_dist
     if nn_ratio is not None:

@@ -171,6 +171,25 @@ def set_row(a, k, row, do):
     return out
 
 
+def free_slots(valid, want):
+    """First-free-slot allocation: the entries where `want` is set take the
+    free slots (valid False) in index order -> (slot per entry, want
+    restricted to the entries that got one)."""
+    pos = torch.cumsum(want.to(torch.int32), 0) - 1
+    free_order = torch.argsort(valid.to(torch.int8), stable=True)  # free slots first
+    want = want & (pos < torch.sum(~valid))
+    return free_order[torch.clamp(pos, min=0).long()].to(torch.int32), want
+
+
+def take_row(a, k):
+    """a[k] for a Python int or a 0-dim index tensor k. Indexing with a 0-dim
+    tensor reads it back to the host (a device synchronisation);
+    `index_select` does not."""
+    if torch.is_tensor(k):
+        return a.index_select(0, k.reshape(1).long())[0]
+    return a[k]
+
+
 def _norm(x):
     return torch.sqrt(torch.sum(x * x, -1))
 
@@ -257,10 +276,7 @@ class Tracker:
         rank = torch.empty(N, dtype=torch.int32, device=self.device)
         rank[order] = torch.arange(N, dtype=torch.int32, device=self.device)
         promote = cand & (close | (rank < C.NEW_KF_MAX_CLOSE_POINTS)) & do
-        pos_in_new = torch.cumsum(promote.to(torch.int32), 0) - 1
-        free_order = torch.argsort(m.pt_valid.to(torch.int8), stable=True)  # free slots first
-        promote &= pos_in_new < torch.sum(~m.pt_valid)
-        new_id = free_order[torch.clamp(pos_in_new, min=0).long()].to(torch.int32)
+        new_id, promote = free_slots(m.pt_valid, promote)
         scatter_id = torch.where(promote, new_id, P)
 
         Twc = se3.inverse(Tcw)
@@ -335,10 +351,7 @@ class Tracker:
         ln_cand = (frame.ln_valid & (frame.ln_depth_sp > 0) & (frame.ln_depth_ep > 0)
                    & (frame.ln_depth_sp < self.depth_th) & (frame.ln_depth_ep < self.depth_th)
                    & (ml_of_ln < 0) & do)
-        ln_pos_new = torch.cumsum(ln_cand.to(torch.int32), 0) - 1
-        ln_free_order = torch.argsort(m.ln_valid.to(torch.int8), stable=True)  # free slots first
-        ln_cand &= ln_pos_new < torch.sum(~m.ln_valid)
-        ln_new_id = ln_free_order[torch.clamp(ln_pos_new, min=0).long()].to(torch.int32)
+        ln_new_id, ln_cand = free_slots(m.ln_valid, ln_cand)
         ln_scatter = torch.where(ln_cand, ln_new_id, Q)
         sw_w = se3.transform(Twc, camera.backproject(self.K, frame.ln_sp, frame.ln_depth_sp))
         ew_w = se3.transform(Twc, camera.backproject(self.K, frame.ln_ep, frame.ln_depth_ep))
@@ -373,10 +386,11 @@ class Tracker:
     # ---------------------------------------------------------- local set
     def _compute_local_set(self, m: MapState, k):
         """Landmark ids observed by keyframe k and its top LOCAL_COVIS_KFS
-        covisible keyframes, deduplicated, ascending, -1 fill to ws_cap."""
+        covisible keyframes, deduplicated, ascending, -1 fill to ws_cap.
+        k is a 0-dim tensor; nothing here reads the device back."""
         P = self.max_pts
-        row = m.kf_lm_idx[k.long()]
-        row_ok = m.kf_feat_valid[k.long()] & (row >= 0)
+        row = take_row(m.kf_lm_idx, k)
+        row_ok = take_row(m.kf_feat_valid, k) & (row >= 0)
         member_k = set_drop(torch.zeros(P, dtype=torch.bool, device=self.device),
                             torch.where(row_ok, row, P), True)
         # covisibility weight of every KF against k: how many of its

@@ -156,3 +156,55 @@ def covisibility(m: MapState, obs=None):
     o = obs.to(torch.float32)
     w = (o @ o.t()).to(torch.int32)
     return w * (1 - torch.eye(w.shape[0], dtype=torch.int32, device=w.device))
+
+
+def _incidence_counts(ids, ok, P, w=None, reduce_rows=False):
+    """Observation counts from per-row id lists: i32[K, P] with
+    out[k, p] = sum_f w[k, f] * (ids[k, f] == p) over the rows where `ok`,
+    or with reduce_rows=True the i32[P] column sums. One integer
+    `index_add_` with a drop column where the reference contracts two
+    one-hot operands (a TPU workaround for slow scatters); the counts are
+    the same integers."""
+    K, F = ids.shape
+    wgt = ok.to(torch.int32) if w is None else torch.where(ok, w, 0).to(torch.int32)
+    col = torch.where(ok, ids, P).long()
+    if reduce_rows:
+        cnt = torch.zeros(P + 1, dtype=torch.int32, device=ids.device)
+        cnt.index_add_(0, col.reshape(-1), wgt.reshape(-1))
+        return cnt[:P]
+    cnt = torch.zeros((K, P + 1), dtype=torch.int32, device=ids.device)
+    cnt.scatter_add_(1, col, wgt)
+    return cnt[:, :P]
+
+
+def clear_dead_references(m: MapState) -> MapState:
+    """Drop kf_lm_idx / kf_ln_idx references to invalidated landmarks, so a
+    recycled slot is never reached through a stale reference."""
+    lm = m.kf_lm_idx
+    lm_ok = (lm >= 0) & m.pt_valid[torch.clamp(lm, min=0).long()]
+    ln = m.kf_ln_idx
+    ln_ok = (ln >= 0) & m.ln_valid[torch.clamp(ln, min=0).long()]
+    return m._replace(kf_lm_idx=torch.where(lm_ok, lm, -1), kf_ln_idx=torch.where(ln_ok, ln, -1))
+
+
+def weighted_point_nobs(m: MapState):
+    """i32[P]: observations per map point, stereo ones (u_r >= 0) counting
+    2 and mono ones 1 (MapPoint::AddObservation)."""
+    P = m.pt_valid.shape[0]
+    ok = (m.kf_lm_idx >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    w = torch.where(m.kf_uv[..., 2] >= 0, 2, 1).to(torch.int32)
+    return _incidence_counts(m.kf_lm_idx, ok, P, w=w, reduce_rows=True)
+
+
+def line_observation_matrix(m: MapState):
+    """bool[K, Q] incidence: keyframe k observes map line q."""
+    Q = m.ln_valid.shape[0]
+    ok = (m.kf_ln_idx >= 0) & m.kf_ln_valid & m.kf_valid[:, None]
+    return _incidence_counts(m.kf_ln_idx, ok, Q) > 0
+
+
+def point_obs_count(m: MapState, obs=None):
+    """i32[P]: number of keyframes observing each point."""
+    if obs is None:
+        obs = observation_matrix(m)
+    return torch.sum(obs, 0).to(torch.int32)

@@ -1,22 +1,27 @@
 """System facade: frame in, trajectory out.
 
 Port of plslam_tpu/system.py (System::System, TrackRGBD,
-SaveTrajectoryTUM, ...) in its synchronous, mapper-less mode:
+SaveTrajectoryTUM, ...) in its synchronous mode, with the local mapper:
 
-    slam = System(settings, use_local_mapping=False, use_loop_closing=False)
+    slam = System(settings)                        # mapper on, as the reference
     Tcw = slam.track_rgbd(rgb_or_gray, depth, t)   # f64[4, 4] or None
     slam.save_trajectory_tum("traj.txt")
 
 Each `track_rgbd` builds the frame (`FrameBuilder`, kernels B1 and B2 on
 the card), runs one `Tracker.step` (B3) and reads the step's packed
-telemetry back once; keyframes add a row to the relocalizer's BoW database
-on the device. A LOST frame is relocalized by BoW + PnP
+telemetry back once. A keyframe then runs the keyframe chain on the
+device: the local mapper (`pipeline/mapping.py`: culling, triangulation,
+fusion, local BA, keyframe culling), the tracking working set recomputed
+around the reference keyframe, the keyframe's BoW row in the relocalizer's
+database, and the rebase data of the keyframes the chain culled; the
+host reads that one packed vector back and re-anchors the trajectory rows
+of culled keyframes. Without the mapper (`use_local_mapping=False`) a
+keyframe only adds its BoW row. A LOST frame is relocalized by BoW + PnP
 (`pipeline/reloc.py`, B3 again) before the call returns.
 
 Not ported yet, and refused with NotImplementedError rather than run as a
-subset: local mapping (`use_local_mapping=True`, the reference's default:
-ROADMAP A15), loop closing (`use_loop_closing=True`, or None with
-`UseLoopClosing` on in the settings: A17), the pipelined modes
+subset: loop closing (`use_loop_closing=True`, or None with
+`UseLoopClosing` on in the settings: ROADMAP A17), the pipelined modes
 (`pipeline_depth > 0`: A18), map snapshots and debug images (`save_map`,
 `load_map`, `dump_debug_images`: A19) and the host line detector
 (`line_backend: "host"`: A21).
@@ -34,15 +39,31 @@ import torch
 from plslam_tpu_torch import constants as C
 from plslam_tpu_torch.config import Settings, load_settings
 from plslam_tpu_torch.features.frame import FrameBuilder
+from plslam_tpu_torch.geometry import se3
 from plslam_tpu_torch.io import trajectory as traj_io
 from plslam_tpu_torch.pipeline import tracking as T
+from plslam_tpu_torch.pipeline.mapping import LocalMapper
 from plslam_tpu_torch.pipeline.reloc import Relocalizer
+from plslam_tpu_torch.utils.precision import mm
 
 TRACKING_STATES = {0: "NOT_INITIALIZED", 1: "OK", 2: "LOST"}
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to plslam_tpu_torch yet (ROADMAP {item})")
+
+
+def _rebase_aux(m, prev_valid):
+    """Rebase data of the keyframes one chain culled, on the device: which
+    slots it culled, each slot's nearest surviving keyframe by frame id,
+    and the rebase transform M = Tcw_culled @ Twc_survivor (float32, as the
+    reference computes it)."""
+    cur_valid = m.kf_valid
+    culled = prev_valid & ~cur_valid & torch.any(cur_valid)
+    fid = m.kf_frame_id
+    dist = torch.where(cur_valid[None, :], torch.abs(fid[:, None] - fid[None, :]), 1 << 30)
+    p_of = torch.argmin(dist, 1).to(torch.int32)
+    return culled, p_of, mm(m.kf_pose, se3.inverse(m.kf_pose[p_of.long()]))
 
 
 class System:
@@ -62,9 +83,9 @@ class System:
 
         log_path: append one JSON line per frame (frame, t, state, inliers,
         matches, new_kf, kf_slot, n_kf, n_pt, n_ln, loops_closed,
-        closure_ms, gba_pending, ms). Only `use_local_mapping=False`,
-        `use_loop_closing=False` and `pipeline_depth=0` are ported; the
-        reference's defaults therefore raise NotImplementedError."""
+        closure_ms, gba_pending, ms). Loop closing and `pipeline_depth > 0`
+        are not ported and raise NotImplementedError; with the settings'
+        `UseLoopClosing` off the reference's defaults run."""
         if sensor.lower() != "rgbd":
             raise ValueError("only the RGB-D pipeline is supported (like the reference fork)")
         if not isinstance(settings, Settings):
@@ -73,8 +94,6 @@ class System:
         self.use_local_mapping = bool(use_local_mapping)
         self.use_loop_closing = bool(settings.use_loop_closing if use_loop_closing is None else use_loop_closing)
         self.pipeline_depth = int(pipeline_depth)
-        if self.use_local_mapping:
-            raise _not_ported("local mapping (use_local_mapping=True)", "A15")
         if self.use_loop_closing:
             raise _not_ported("loop closing (use_loop_closing=True)", "A17")
         if self.pipeline_depth != 0:
@@ -82,11 +101,13 @@ class System:
 
         self.builder = FrameBuilder(settings, device=device)  # raises for line_backend "host" (A21)
         self.device = self.builder.device
-        # no mapper or loop closer changes the map after the step, so the
-        # step refreshes its own working set on keyframe frames
-        self.tracker = T.Tracker(settings, max_kf=max_kf, max_pts=max_pts, in_step_local_refresh=True,
-                                 device=self.device)
+        # the keyframe chain recomputes the working set after the mapper
+        # changed the map, so the step's own refresh would be overwritten;
+        # without a mapper the step refreshes it on keyframe frames
+        self.tracker = T.Tracker(settings, max_kf=max_kf, max_pts=max_pts,
+                                 in_step_local_refresh=not self.use_local_mapping, device=self.device)
         self.state = self.tracker.init_state()
+        self._mapper = LocalMapper(self.tracker) if self.use_local_mapping else None
         # relocalization is part of tracking (Tracking::Relocalization),
         # available with or without loop closing
         self._reloc = Relocalizer(self.tracker)
@@ -94,6 +115,11 @@ class System:
         self.n_loops_closed = 0
         self.last_frame_was_kf = False
         self.telemetry_reads = 0  # device->host telemetry copies (one per frame)
+        self.aux_reads = 0  # device->host copies of keyframe-chain results (one per chain)
+        # culled-keyframe substitutions for rows not yet appended:
+        # slot -> (surviving slot, Tcw_culled @ Twc_survivor); an entry
+        # expires when a new keyframe reuses the slot
+        self._recent_rebase: dict[int, tuple[int, np.ndarray]] = {}
         self._last_status = 0
         self._last_frame = None
         self._log_fh = open(log_path, "a", buffering=1) if log_path is not None else None
@@ -136,9 +162,54 @@ class System:
                 self._last_status = T.ST_OK
         return ret
 
+    def _kf_chain(self, ts, k: int):
+        """The per-keyframe chain on the device: the local mapper, the
+        working set around the reference keyframe (Tracking::UpdateLocalMap),
+        keyframe k's BoW row (KeyFrameDatabase::add) and the rebase data,
+        packed as aux = [culled mask (K) | nearest survivor (K) | rebase
+        transforms, row-major 4x4 per slot (16 K)]. -> (state, aux)."""
+        prev_valid = ts.m.kf_valid
+        m = self._mapper.process(ts.m, k)
+        ts = ts._replace(m=m, local_set=self.tracker._compute_local_set(m, ts.ref_kf))
+        self._reloc.observe_keyframe(m, k)
+        culled, p_of, M = _rebase_aux(m, prev_valid)
+        return ts, torch.cat([culled.to(torch.float32), p_of.to(torch.float32), M.reshape(-1)])
+
+    def _dispatch_kf_chain(self, kf_id: int):
+        """Run the keyframe chain after keyframe kf_id; -> its aux vector,
+        still on the device."""
+        self.state, aux = self._kf_chain(self.state, kf_id)
+        return aux
+
+    def _process_chain_results(self, aux):
+        """Host tail of a keyframe chain: one read of its aux vector, then
+        the rebase of trajectory rows whose reference keyframe it culled."""
+        K = self.tracker.max_kf
+        v = aux.cpu().numpy()
+        self.aux_reads += 1
+        culled = v[:K] > 0
+        if culled.any():
+            self._apply_rebase(culled, v[K:2 * K].astype(np.int64),
+                               v[2 * K:18 * K].reshape(K, 4, 4).astype(np.float64))
+
+    def _apply_rebase(self, culled, p_of, M):
+        """Re-anchor replay rows whose reference keyframe was culled
+        (SaveTrajectoryTUM follows a bad keyframe to its parent); the
+        substitutions are kept in _recent_rebase for rows still to come."""
+        ref_arr = np.asarray(self._ref_ids)
+        for j in np.where(culled)[0]:
+            p = int(p_of[j])
+            Mj = M[j]
+            for i in np.where(ref_arr == j)[0]:
+                self._rel_poses[i] = self._rel_poses[i] @ Mj
+                self._ref_ids[i] = p
+            ref_arr[ref_arr == j] = p
+            self._recent_rebase[int(j)] = (p, Mj)
+
     def _finalize_one(self, v, frame, timestamp, disp_ms):
-        """Host side of a frame from its telemetry row: the BoW row of a new
-        keyframe, trajectory rows and the JSONL record. -> Tcw or None."""
+        """Host side of a frame from its telemetry row: the keyframe chain
+        (or, without the mapper, the BoW row) of a new keyframe, trajectory
+        rows and the JSONL record. -> Tcw or None."""
         t0 = time.perf_counter()
         tracked = v[T.TEL_TRACKED] > 0
         new_kf = bool(v[T.TEL_NEW_KF] > 0)
@@ -150,10 +221,20 @@ class System:
         self._last_frame = frame
         if new_kf:
             self._kf_timestamps[kf_id] = timestamp
-            if not self.localization_only:
+            self._recent_rebase.pop(kf_id, None)  # the slot is reused: its substitution is stale
+            if self._mapper is not None and not self.localization_only:
+                self._process_chain_results(self._dispatch_kf_chain(kf_id))
+            elif not self.localization_only:
                 self._reloc.observe_keyframe(self.state.m, kf_id)
+        rel_pose = np.asarray(v[T.TEL_REL_POSE], np.float64).reshape(4, 4)
+        if ref_kf in self._recent_rebase:
+            # the frame's reference keyframe was culled: rebase the row as
+            # _apply_rebase did the rows before it
+            p, M = self._recent_rebase[ref_kf]
+            rel_pose = rel_pose @ M
+            ref_kf = p
         self._timestamps.append(timestamp)
-        self._rel_poses.append(np.asarray(v[T.TEL_REL_POSE], np.float64).reshape(4, 4))
+        self._rel_poses.append(rel_pose)
         self._ref_ids.append(ref_kf)
         self._tracked.append(bool(tracked))
         if self._log_fh is not None:
@@ -205,6 +286,7 @@ class System:
         return self.state.m.pt_pos.cpu().numpy()[lm[lm >= 0]]
 
     def reset(self):
+        self._recent_rebase = {}
         self._last_status = 0
         self._last_frame = None
         self.state = self.tracker.init_state()

@@ -40,6 +40,7 @@ from plslam_tpu.system import System as JSystem
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.io.synthetic import SyntheticSequence
 from plslam_tpu_torch.pipeline import tracking
+from plslam_tpu_torch.solvers.local_ba import LocalBA
 from plslam_tpu_torch.system import System
 
 torch.set_num_threads(2)
@@ -224,12 +225,17 @@ def test_bow_database_matches_reference(run):
 
 def test_options_outside_the_slice_raise(run, tmp_path):
     s = dataclasses.replace(run["settings"], use_lines=True)
-    with pytest.raises(NotImplementedError, match="A15"):
-        System(s, device="cpu")  # the reference's default: local mapping on
+    assert s.use_loop_closing
+    with pytest.raises(NotImplementedError, match="A17"):
+        System(s, device="cpu")  # the reference's defaults: UseLoopClosing on in the settings
     with pytest.raises(NotImplementedError, match="A17"):
         System(s, use_local_mapping=False, use_loop_closing=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A17"):
-        System(s, use_local_mapping=False, device="cpu")  # UseLoopClosing on in the settings
+        System(s, use_local_mapping=False, device="cpu")
+    mapped = System(s, use_loop_closing=False, device="cpu")  # local mapping on: constructs
+    assert mapped._mapper is not None and not mapped.tracker.in_step_local_refresh
+    with pytest.raises(NotImplementedError, match="A17"):
+        LocalBA(mapped.tracker, global_mode=True)
     with pytest.raises(NotImplementedError, match="A18"):
         System(s, use_local_mapping=False, use_loop_closing=False, pipeline_depth=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A21"):
