@@ -5,8 +5,9 @@ This system has no weights; what crosses over is state. The reference's
 mappings (or NamedTuples) of numpy arrays, become the port's NamedTuples
 of tensors on `device`, field by field. bf16 arrays (the reference's +-1
 descriptor bits) become float32; everything else keeps its dtype. The
-relocalizer's BoW database and a `System`'s host-side bookkeeping cross
-over as numpy arrays and lists.
+relocalizer's BoW database, a loop closer's detection and closure state
+and a `System`'s host-side bookkeeping cross over as numpy arrays and
+lists.
 """
 
 from __future__ import annotations
@@ -60,15 +61,36 @@ def frame_from_numpy(d, device="cuda") -> FrameData:
     return _convert(FrameData, d, resolve_device(device))
 
 
+def loop_closer_from_numpy(loop, g_mask, g_consist, loop_edges, kf_counter, last_loop_kfn, n_loops_closed,
+                           gba_queue, gba_k):
+    """Load a reference `LoopCloser`'s state into the port's: the
+    consistency groups (`_g_mask` bool[G, K], `_g_consist` i32[G]), the
+    accepted loop edges, the keyframe counter, the keyframe count at the
+    last closure, the closures so far and the pending global-BA slices with
+    their keyframe (`gba_queue`, `_gba_k`). The BoW rows cross with
+    `system_from_numpy` (a LoopCloser is the System's relocalizer)."""
+    loop._g_mask = _tensor(g_mask, loop.device).to(torch.bool)
+    loop._g_consist = _tensor(g_consist, loop.device).to(torch.int32)
+    loop._loop_edges = [(int(a), int(b)) for a, b in loop_edges]
+    loop._kf_counter = int(kf_counter)
+    loop.last_loop_kfn = int(last_loop_kfn)
+    loop.n_loops_closed = int(n_loops_closed)
+    loop.gba_queue = [(int(i1), int(i2), bool(e)) for i1, i2, e in gba_queue]
+    loop._gba_k = int(gba_k)
+    return loop
+
+
 def system_from_numpy(system, state, kf_bow, timestamps, rel_poses, ref_ids, tracked, kf_timestamps,
-                      last_status, recent_rebase=None):
+                      last_status, recent_rebase=None, loop=None):
     """Load a reference `System`'s state into a port `System`: its
     TrackState (numpy leaves), its relocalizer's BoW rows (`kf_bow`,
     f32[max_kf, W]) and its host bookkeeping (`_timestamps`, `_rel_poses`,
     `_ref_ids`, `_tracked`, `_kf_timestamps`, `_last_status`, and the
     culled-keyframe substitutions `_recent_rebase`: slot -> (surviving
-    slot, 4x4 rebase transform)), so that both continue from one state.
-    The port's System has no past frame to relocalize until its next
+    slot, 4x4 rebase transform)), and with loop closing on the loop
+    closer's state (`loop`: the keyword arguments of
+    `loop_closer_from_numpy`), so that both continue from one state. The
+    port's System has no past frame to relocalize until its next
     track_rgbd."""
     system.state = track_state_from_numpy(state, system.device)
     system._reloc.load_database(np.asarray(kf_bow, np.float32))
@@ -82,4 +104,7 @@ def system_from_numpy(system, state, kf_bow, timestamps, rel_poses, ref_ids, tra
                              for j, (p, M) in dict(recent_rebase or {}).items()}
     system._last_frame = None
     system.localization_only = bool(np.asarray(_fields(state)["only_tracking"]))
+    if loop is not None:
+        loop_closer_from_numpy(system._loop, **loop)
+        system.n_loops_closed = system._loop.n_loops_closed
     return system

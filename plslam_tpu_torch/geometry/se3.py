@@ -50,6 +50,13 @@ def _eye3_like(K):
     return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
 
 
+def so3_exp(phi):
+    """Rodrigues: [..., 3] -> [..., 3, 3]."""
+    A, B, _ = _so3_coeffs(torch.sum(phi * phi, -1))
+    K = hat(phi)
+    return _eye3_like(K) + A[..., None, None] * K + B[..., None, None] * mm(K, K)
+
+
 def so3_log(R):
     """[..., 3, 3] -> [..., 3] through the canonical (w >= 0) quaternion."""
     q = to_quat_xyzw(R)

@@ -1,8 +1,10 @@
 """Synthetic RGB-D sequence with exact ground truth (numpy only).
 
-Copy of plslam_tpu/io/synthetic.py's "xyz" sequence (a textured background
-plane plus floating foreground patches, rendered by ray-plane intersection
-along a smooth fr1_xyz-style trajectory) that needs no OpenCV. Three
+Copy of plslam_tpu/io/synthetic.py (a textured background plane plus
+floating foreground patches, rendered by ray-plane intersection along a
+smooth fr1_xyz-style trajectory, or the loop-closure circuits "loop" and
+"rect", optionally with a per-frame depth-noise field) that needs no
+OpenCV. Three
 OpenCV calls of the reference are written out in numpy: GaussianBlur
 (reflect-101 border, float64 taps here, so texels differ from OpenCV's by
 float32 rounding only), line (the thick-line path exactly: clipping,
@@ -247,10 +249,20 @@ class SyntheticSequence:
         motion_scale: float = 1.0,
         fps: float = 30.0,
         settings: Settings | None = None,
+        trajectory: str = "xyz",
+        depth_noise: float = 0.0,
     ):
         """settings: render through this calibration (intrinsics and lens
-        distortion), so the pipeline's undistortion inverts the lens."""
+        distortion), so the pipeline's undistortion inverts the lens.
+        trajectory: "xyz" (fr1_xyz-style), "loop" (a circle facing the
+        wall) or "rect" (a corridor circuit). depth_noise: sigma of a
+        per-frame low-frequency multiplicative depth error field, which
+        gives the odometry a random-walk drift for loop closure to remove."""
+        if trajectory not in ("xyz", "loop", "rect"):
+            raise ValueError(f"unknown trajectory {trajectory!r}")
         self.n_frames = n_frames
+        self.trajectory = trajectory
+        self.depth_noise = depth_noise
         if settings is not None:
             width, height = settings.width, settings.height
             fps = settings.fps
@@ -266,13 +278,31 @@ class SyntheticSequence:
         self.tex = _texture(rng)
         self.tex_scale = 220.0  # pixels per world metre on the planes
         self.z_bg = 3.4
-        # foreground square patches (x, y, half-size, z, texture offset x, y)
-        self.patches = [
-            (rng.uniform(-1.4, 1.4), rng.uniform(-1.0, 1.0),
-             rng.uniform(0.2, 0.5), rng.uniform(1.5, 3.0),
-             rng.uniform(4.0, 8.0), rng.uniform(4.0, 8.0))
-            for _ in range(14)
-        ]
+        # foreground square patches (x, y, half-size, z, texture offset x,
+        # y), each sampling its own texture region; along the circuits they
+        # cover the whole swept ring (the "rect" ones on a jittered grid)
+        if trajectory == "loop":
+            self.patches = [
+                (rng.uniform(-2.4, 2.4), rng.uniform(-0.8, 4.0),
+                 rng.uniform(0.2, 0.5), rng.uniform(1.5, 3.0),
+                 rng.uniform(4.0, 8.0), rng.uniform(4.0, 8.0))
+                for _ in range(34)
+            ]
+        elif trajectory == "rect":
+            self.patches = []
+            for gx in range(8):
+                for gy in range(6):
+                    px = -1.2 + (gx + rng.uniform(0.2, 0.8)) * 5.6 / 8
+                    py = -1.0 + (gy + rng.uniform(0.2, 0.8)) * 4.6 / 6
+                    self.patches.append((px, py, rng.uniform(0.25, 0.5), rng.uniform(1.5, 2.8),
+                                         rng.uniform(4.0, 8.0), rng.uniform(4.0, 8.0)))
+        else:
+            self.patches = [
+                (rng.uniform(-1.4, 1.4), rng.uniform(-1.0, 1.0),
+                 rng.uniform(0.2, 0.5), rng.uniform(1.5, 3.0),
+                 rng.uniform(4.0, 8.0), rng.uniform(4.0, 8.0))
+                for _ in range(14)
+            ]
         self.motion_scale = motion_scale
         K, dist = self.settings.intrinsics()
         self.K = K
@@ -291,6 +321,38 @@ class SyntheticSequence:
         """Twc (camera->world), float64."""
         t = i / self.fps
         s = self.motion_scale
+        if self.trajectory == "loop":
+            # a circle in the wall-parallel plane, facing the wall; the ring
+            # it views is wider than the field of view, so the return to the
+            # start is abrupt; the last ~25% of frames dwell at the start
+            period = max(int(0.75 * self.n_frames), 2)
+            ph = 2.0 * np.pi * min(i, period) / period
+            R_loop = 1.6 * s
+            T = np.eye(4)
+            T[:3, 3] = [R_loop * np.sin(ph), R_loop * (1.0 - np.cos(ph)), 0.05 * s * np.sin(3.0 * ph)]
+            return T
+        if self.trajectory == "rect":
+            # out-and-back corridor circuit: straight legs (+x, +y, -x, -y),
+            # eased corners, the return leg outside the outbound leg's view;
+            # the last ~10% of frames dwell at the start
+            Lx, Ly = 3.2 * s, 2.4 * s
+            legs = [0.30, 0.15, 0.30, 0.15]
+            period = max(int(0.9 * self.n_frames), 4)
+            u = min(i, period) / period
+            pts = [(0.0, 0.0), (Lx, 0.0), (Lx, Ly), (0.0, Ly), (0.0, 0.0)]
+            tx, ty = pts[-1]
+            acc = 0.0
+            for leg, (p0, p1) in zip(legs, zip(pts[:-1], pts[1:])):
+                if u <= acc + leg or leg == legs[-1]:
+                    a = np.clip((u - acc) / leg, 0.0, 1.0)
+                    a = a * a * (3 - 2 * a)  # smoothstep
+                    tx = p0[0] + a * (p1[0] - p0[0])
+                    ty = p0[1] + a * (p1[1] - p0[1])
+                    break
+                acc += leg
+            T = np.eye(4)
+            T[:3, 3] = [tx, ty, 0.03 * s * np.sin(7.0 * u)]
+            return T
         tx = 0.25 * s * np.sin(0.9 * t)
         ty = 0.18 * s * np.sin(0.7 * t + 0.5)
         tz = 0.12 * s * np.sin(0.5 * t + 1.1)
@@ -335,6 +397,13 @@ class SyntheticSequence:
         t10 = self.tex[y0 + 1, x0]
         t11 = self.tex[y0 + 1, x0 + 1]
         gray = (1 - ay) * ((1 - ax) * t00 + ax * t01) + ay * ((1 - ax) * t10 + ax * t11)
+        if self.depth_noise > 0:
+            # a deterministic per-frame field, constant over 40 x 40 cells
+            nrng = np.random.default_rng((self.seed + 1) * 100003 + i)
+            cell = 40
+            H, W = depth.shape
+            field = nrng.normal(0.0, self.depth_noise, (H // cell + 1, W // cell + 1))
+            depth = depth * (1.0 + np.kron(field, np.ones((cell, cell)))[:H, :W])
         return gray.astype(np.float32), depth.astype(np.float32), self.timestamp(i)
 
     def gt_trajectory(self):

@@ -1,7 +1,7 @@
-"""Local bundle adjustment: batched Schur-complement Levenberg-Marquardt.
+"""Local and global bundle adjustment: batched Schur-complement LM.
 
-Port of plslam_tpu/solvers/local_ba.py (Optimizer::LocalBundleAdjustment),
-local mode:
+Port of plslam_tpu/solvers/local_ba.py (Optimizer::LocalBundleAdjustment,
+and with `global_mode=True` GlobalBundleAdjustment). Local mode:
 
   * Window: the new keyframe and its top covisible keyframes (vertices);
     keyframes that see local landmarks but are outside the window enter
@@ -29,9 +29,16 @@ evaluation of the LM accept test skips the Jacobians (the reference's
 compiler drops them); the first LM iteration reuses the phase's initial
 build, which is the same linearisation. Nothing reads the device back.
 
-Global mode (`global_mode=True`, GlobalBundleAdjustment) and the
-time-sliced runner (`slice_runner`) serve loop closing only and are not
-ported (ROADMAP A17).
+Global mode: the window is every valid keyframe (slot 0 the gauge), no
+fixed ring, and every valid landmark and map line enters; the reference's
+scatter paths there are the same sorted segment sums, so a slice repeats
+itself bit for bit on the card. At full capacities the Schur factor M is
+[6 x 256, 3 x (32,768 + 2 x 4,096)] float32 (~755 MB) and S = -M M^T
+~5.8e11 operations, in full float32 (the reference asks HIGHEST precision;
+TF32 is off package-wide). `slice_runner(iters1, iters2, erase)` is the
+unit of the time-sliced global BA that loop closing queues: iters1 robust
+iterations, then the chi2 gate and iters2 plain ones (a phase with 0
+iterations is skipped), the erase sweep only with erase=True.
 """
 
 from __future__ import annotations
@@ -110,24 +117,42 @@ class LocalBA:
         fixed: int = C.LOCAL_FIXED_KFS,
         local_pts: int = 4096,
         local_lines: int = 256,
+        iters1: int = C.LOCAL_BA_ITERS_1,
+        iters2: int = C.LOCAL_BA_ITERS_2,
         global_mode: bool = False,
     ):
-        if global_mode:
-            raise NotImplementedError("global bundle adjustment (LocalBA(global_mode=True)) is not ported to "
-                                      "plslam_tpu_torch yet (ROADMAP A17)")
+        """global_mode=True: GlobalBundleAdjustment, the window every valid
+        keyframe and every valid landmark and map line (the sizes given
+        here are then ignored)."""
         self.tracker = tracker
+        self.global_mode = global_mode
+        if global_mode:
+            window, fixed = tracker.max_kf, 1
+            local_pts, local_lines = tracker.max_pts, tracker.max_maplines
         self.W = min(window, tracker.max_kf)
         self.X = min(fixed, tracker.max_kf)
         self.Pl = min(local_pts, tracker.max_pts)
         self.Ql = min(local_lines, tracker.max_maplines)
+        self.iters1, self.iters2 = iters1, iters2
+
+    def run(self, m: MapState, k) -> MapState:
+        """The full schedule around keyframe k (a Python int or a 0-dim
+        index tensor), outlier observations erased."""
+        return self._run(m, k, self.iters1, self.iters2, True)
 
     def slice_runner(self, iters1: int, iters2: int, erase: bool):
-        raise NotImplementedError("the time-sliced global BA (LocalBA.slice_runner) is not ported to "
-                                  "plslam_tpu_torch yet (ROADMAP A17)")
+        """One slice of a time-sliced global BA as a function (m, k) -> m:
+        iters1 robust LM iterations, then the chi2 gate and iters2 plain
+        ones, the erase sweep only if `erase` (the last slice). Each slice
+        re-selects on the map it is given, so keyframes made between
+        slices join the next one."""
+        return lambda m, k: self._run(m, k, iters1, iters2, erase)
 
     # ------------------------------------------------------------ build
     def _select(self, m: MapState, k):
         """Window / fixed keyframes and local landmark slots around k."""
+        if self.global_mode:
+            return self._select_global(m)
         tr = self.tracker
         Kc, P, Q, dev = tr.max_kf, tr.max_pts, tr.max_maplines, m.kf_valid.device
         k1 = k.reshape(1).long() if torch.is_tensor(k) else torch.full((1,), k, dtype=torch.long, device=dev)
@@ -163,6 +188,25 @@ class LocalBA:
         ln_ids, ln_sel_valid, ln_slot = pick(ln_local, self.Ql, Q)
         return (win_ids, win_mask, fix_ids, fix_valid, local_ids, local_valid, lm_slot, ln_ids, ln_sel_valid,
                 ln_slot)
+
+    def _select_global(self, m: MapState):
+        """GlobalBundleAdjustment's scope: every valid keyframe (valid slots
+        first, in slot order), every landmark and map line slot."""
+        tr = self.tracker
+        dev = m.kf_valid.device
+        win_ids = torch.argsort((~m.kf_valid).to(torch.int8), stable=True)[: self.W]
+        fix_ids = torch.zeros(self.X, dtype=torch.long, device=dev)
+
+        def everything(valid, n, cap):
+            ids = torch.arange(n, device=dev)
+            slot = torch.where(torch.arange(cap, device=dev) < n, torch.arange(cap, dtype=torch.int32, device=dev),
+                               -1)
+            return ids, valid[:n], torch.where(valid, slot, -1)
+
+        local_ids, local_valid, lm_slot = everything(m.pt_valid, self.Pl, tr.max_pts)
+        ln_ids, ln_sel_valid, ln_slot = everything(m.ln_valid, self.Ql, tr.max_maplines)
+        return (win_ids, m.kf_valid[win_ids], fix_ids, torch.zeros(self.X, dtype=torch.bool, device=dev), local_ids,
+                local_valid, lm_slot, ln_ids, ln_sel_valid, ln_slot)
 
     # ------------------------------------------------------------- core
     def _edge_terms(self, poses, pos_local, uv, oct_, lm_slot_row, feat_ok, is_stereo, robust: bool, jac=True):
@@ -247,9 +291,7 @@ class LocalBA:
         w = torch.where(ok, hub, 0.0)
         return (r1, Jc1, Jp1), (r2, Jc2, Jp2), w, chi2, ok, cost
 
-    def run(self, m: MapState, k) -> MapState:
-        """The full schedule around keyframe k (a Python int or a 0-dim
-        index tensor), outlier observations erased."""
+    def _run(self, m: MapState, k, iters1: int, iters2: int, erase: bool) -> MapState:
         tr = self.tracker
         (win_ids, win_mask, fix_ids, fix_valid, local_ids, local_valid,
          lm_slot, ln_ids, ln_sel_valid, ln_slot) = self._select(m, k)
@@ -425,12 +467,14 @@ class LocalBA:
         ln_edge_active = torch.ones_like(ln_feat_ok)
         poses, pos = poses0, pos_all0
         delta2 = torch.where(is_stereo, C.CHI2_STEREO, C.CHI2_MONO)
-        poses, pos = lm_phase(poses, pos, edge_active, ln_edge_active, True, C.LOCAL_BA_ITERS_1)
-        # chi2 gate, then the second phase without the robust kernel
-        chi2, ok, chi2_ln, ok_ln = residuals(poses, pos)
-        edge_active = ok & (chi2 <= delta2)
-        ln_edge_active = ok_ln & (chi2_ln <= C.CHI2_MONO)
-        poses, pos = lm_phase(poses, pos, edge_active, ln_edge_active, False, C.LOCAL_BA_ITERS_2)
+        if iters1 > 0:
+            poses, pos = lm_phase(poses, pos, edge_active, ln_edge_active, True, iters1)
+        if iters2 > 0:
+            # chi2 gate, then the second phase without the robust kernel
+            chi2, ok, chi2_ln, ok_ln = residuals(poses, pos)
+            edge_active = ok & (chi2 <= delta2)
+            ln_edge_active = ok_ln & (chi2_ln <= C.CHI2_MONO)
+            poses, pos = lm_phase(poses, pos, edge_active, ln_edge_active, False, iters2)
 
         # ---- write back
         ln_sid = torch.where(ln_sel_valid, ln_ids, tr.max_maplines)
@@ -440,6 +484,8 @@ class LocalBA:
             ln_sw=set_drop(m.ln_sw, ln_sid, pos[Pl:Pl + Ql]),
             ln_ew=set_drop(m.ln_ew, ln_sid, pos[Pl + Ql:]),
         )
+        if not erase:
+            return m
 
         # final outliers -> erase the observations from the map, over every
         # edge of the optimisation (also those the chi2 gate excluded) and

@@ -208,7 +208,8 @@ def test_chain_reproduces_reference(run, i):
     np.testing.assert_array_equal(ts.local_set.numpy(), want["state"].local_set)
     np.testing.assert_array_equal(slam._reloc.kf_bow.numpy(), want["kf_bow"])
     K = slam.tracker.max_kf
-    np.testing.assert_array_equal(aux[:K].numpy() > 0, pre.kf_valid & ~post.kf_valid)
+    assert aux.shape == (1 + 20 * K,) and float(aux[0]) == 0.0  # the reference's layout; no loop gate here
+    np.testing.assert_array_equal(aux[1:1 + K].numpy() > 0, pre.kf_valid & ~post.kf_valid)
     assert slam.aux_reads == 1
     assert slam._ref_ids == want["ref_ids"] and set(slam._recent_rebase) == set(want["recent_rebase"])
     np.testing.assert_allclose(np.array(slam._rel_poses), np.array(want["rel_poses"]), atol=1e-5)

@@ -72,3 +72,27 @@ def test_draw_line_equals_cv2():
         got = np.zeros((h, w), np.float32)
         synthetic._draw_line(got, p0, p1, 235.0, t)
         np.testing.assert_array_equal(got, want, err_msg=f"{(w, h)} {p0} {p1} thickness {t}")
+
+
+@pytest.fixture(scope="module")
+def circuits():
+    """The loop-closure fixtures' sequences (tests/test_loop_e2e.py): port and
+    reference, 320x240 at 10 fps with the depth-noise field."""
+    kw = dict(n_frames=190, height=240, width=320, seed=0, fps=10.0, depth_noise=0.03)
+    return {tr: (synthetic.SyntheticSequence(trajectory=tr, **kw), jsynthetic.SyntheticSequence(trajectory=tr, **kw))
+            for tr in ("loop", "rect")}
+
+
+@pytest.mark.parametrize("i", (0, 95, 189))
+@pytest.mark.parametrize("trajectory", ("loop", "rect"))
+def test_circuit_frame_equals_reference(circuits, trajectory, i):
+    """The circuits' frames, patch layouts and noisy depth equal the
+    reference's (the start, the far side and the dwell at the start)."""
+    port, ref = circuits[trajectory]
+    assert port.patches == ref.patches
+    g, d, ts = port.frame(i)
+    jg, jd, jts = ref.frame(i)
+    assert ts == jts
+    assert float(np.abs(g - jg).max()) <= TOL
+    assert float(np.abs(d - jd).max()) <= TOL
+    np.testing.assert_array_equal(port.gt_pose_wc(i), ref.gt_pose_wc(i))

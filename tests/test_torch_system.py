@@ -226,16 +226,21 @@ def test_bow_database_matches_reference(run):
 def test_options_outside_the_slice_raise(run, tmp_path):
     s = dataclasses.replace(run["settings"], use_lines=True)
     assert s.use_loop_closing
-    with pytest.raises(NotImplementedError, match="A17"):
-        System(s, device="cpu")  # the reference's defaults: UseLoopClosing on in the settings
-    with pytest.raises(NotImplementedError, match="A17"):
-        System(s, use_local_mapping=False, use_loop_closing=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        System(s, use_local_mapping=False, device="cpu")
+    # loop closing is ported: the reference's defaults construct, with and
+    # without the mapper, and run a frame
+    full = System(s, device="cpu", **CAPS)  # UseLoopClosing on in the settings
+    assert full._loop is not None and full._reloc is full._loop and full._mapper is not None
+    loop_only = System(s, use_local_mapping=False, use_loop_closing=True, device="cpu", **CAPS)
+    assert loop_only._mapper is None and loop_only._loop is not None
+    assert not loop_only.tracker.in_step_local_refresh  # the chain refreshes the working set
+    g, d, t = run["inputs"][0]
+    for slam in (full, loop_only):
+        assert slam.track_rgbd(g, d, t) is not None and slam.aux_reads == 1 and slam._loop._kf_counter == 1
     mapped = System(s, use_loop_closing=False, device="cpu")  # local mapping on: constructs
-    assert mapped._mapper is not None and not mapped.tracker.in_step_local_refresh
-    with pytest.raises(NotImplementedError, match="A17"):
-        LocalBA(mapped.tracker, global_mode=True)
+    assert mapped._mapper is not None and mapped._loop is None and not mapped.tracker.in_step_local_refresh
+    gba = LocalBA(mapped.tracker, global_mode=True)
+    assert (gba.W, gba.Pl, gba.Ql) == (mapped.tracker.max_kf, mapped.tracker.max_pts, mapped.tracker.max_maplines)
+    assert callable(gba.slice_runner(5, 0, False))
     with pytest.raises(NotImplementedError, match="A18"):
         System(s, use_local_mapping=False, use_loop_closing=False, pipeline_depth=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A21"):
