@@ -48,7 +48,26 @@ Phases, each timed and printed:
               chain replayed under torch.profiler (launches, device-busy
               time, launches by stage) and held bit for bit to the run's
               own; the first triangulating chain held against the CPU path.
-  9. loop     System(settings) with every default, loop closing on, full
+  9. pipelined  System(configs/TUM3.yaml, pipeline_depth=4) with every
+              default at full capacities (mapper and loop closing on) on the
+              mapping phase's 30 frames, in turns with pipeline_depth=0 (0,
+              4, 4, 0): every chunk dispatch, single dispatch and keyframe
+              chain under CUDA's sync debug mode "error"; the lag contract
+              (the first 4 calls return None, call i finalizes frame i - 4),
+              every frame tracked, ATE, the two pipelined trajectories byte
+              for byte equal, one telemetry read per chunk (plus one per
+              frame the save's drain dispatches singly), B1 and B2 launched 4
+              times and B3 twice per tracked frame in each chunk; ms per call
+              (median over 4-call group means, as bench.py), the calls
+              without a chain and the whole run end to end, and one chunk
+              under torch.profiler (launches, device-busy, idle share); the
+              launches and device time of the step's device-side switches;
+              pipeline_depth 1 and 2 on 12 frames. Then save_map, load_map in
+              a fresh System on the card and on the CPU path (every field bit
+              for bit equal), 5 frames in localization mode (the map
+              unchanged), and the system phase's blackout fixture pipelined
+              (OK after the flush).
+ 10. loop     System(settings) with every default, loop closing on, full
               capacities: (a) tests/test_loop_e2e.py's fixture,
               SyntheticSequence(190 frames, 320x240, seed 0, "loop", 10 fps,
               depth_noise 0.03) with loop closing on and off, held to the
@@ -71,7 +90,8 @@ Phases, each timed and printed:
               with the outlier sweep). Printed: ms per closure, per slice,
               per tracked call and per chain.
 Then one JSON line with the kernels (launches: B1-B3 from system, the
-public entry; B4 from fast), and as the last line
+public entry; B4 from fast; the pipelined phase prints its own), and as
+the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
 failure exits non-zero; without CUDA the script exits non-zero at once.
 """
@@ -98,6 +118,7 @@ SYS_BEFORE, SYS_BLACK, SYS_AFTER, SYS_STRIDE, SYS_MOTION = 20, 5, 10, 3, 6.0
 # the mapping phase
 MAP_FRAMES = 30
 MAP_DEPTH_RANGE = 3.0  # metres, TUM1 run only
+PIPE_K = 4  # the pipelined phase's pipeline_depth, as bench.py runs the reference
 # the loop phase: tests/test_loop_e2e.py's fixture, and TUM2 on its circuit
 LOOP_FRAMES, LOOP_REVISIT = 190, 150
 TUM2_FRAMES, TUM2_REVISIT = 190, 150
@@ -208,7 +229,7 @@ def run_slice(name, settings, seq, frames, lines: bool):
     from plslam_tpu_torch.eval.ate import ate_rmse
     from plslam_tpu_torch.features.frame import FrameBuilder
     from plslam_tpu_torch.ops import fast_cuda, patches
-    from plslam_tpu_torch.pipeline.tracking import ST_OK, TEL_N_LN, TEL_STATUS, TEL_TRACKED, Tracker
+    from plslam_tpu_torch.pipeline.tracking import ST_OK, ST_UNINIT, TEL_N_LN, TEL_STATUS, TEL_TRACKED, Tracker
     from plslam_tpu_torch.solvers import pose as pose_mod
 
     with Phase(name):
@@ -230,12 +251,14 @@ def run_slice(name, settings, seq, frames, lines: bool):
         b3.line_launches = b3.line_inliers = 0
         b3.count_lines = lines
         ms_frame, tel, poses, line_launches, line_inliers = [], [], [], [0], [0]
+        known = False  # the status the host read (System knows it the same way)
         for g, d, _ in frames:
             t0 = time.perf_counter()
-            state, out = tracker.step(state, builder(g, d))
+            state, out = tracker.step(state, builder(g, d), initialised=known)
             torch.cuda.synchronize()
             ms_frame.append((time.perf_counter() - t0) * 1e3)
             tel.append(out.telemetry.cpu().numpy())
+            known = int(tel[-1][TEL_STATUS]) != ST_UNINIT
             poses.append(out.Tcw.cpu().numpy().astype(np.float64))
             line_launches.append(int(b3.line_launches))
             line_inliers.append(int(b3.line_inliers))
@@ -283,6 +306,22 @@ def run_slice(name, settings, seq, frames, lines: bool):
     return launches
 
 
+def _system_inputs(settings):
+    """The system phase's fixture: SYS_BEFORE frames SYS_STRIDE apart, a
+    blackout, then the first frames again -> (sequence, (gray, depth, t)
+    per call, ground-truth frame index per call or None)."""
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=SYS_STRIDE * SYS_BEFORE, seed=0, settings=settings, motion_scale=SYS_MOTION)
+    before = [SYS_STRIDE * i for i in range(SYS_BEFORE)]
+    after = [SYS_STRIDE * i for i in range(SYS_AFTER)]
+    inputs = [seq.frame(i) for i in before]
+    g, d, t = inputs[-1]
+    inputs += [(np.zeros_like(g), d, t + 0.03 * (j + 1)) for j in range(SYS_BLACK)]
+    inputs += [(g, d, t + 2.0) for g, d, t in (seq.frame(i) for i in after)]
+    return seq, inputs, before + [None] * SYS_BLACK + after
+
+
 def run_system(settings):
     """System.track_rgbd over a blackout and a return to the start, on the
     card; checked and printed. -> the kernel launches counted during
@@ -290,22 +329,13 @@ def run_system(settings):
     import torch
 
     from plslam_tpu_torch.eval.ate import ate_rmse
-    from plslam_tpu_torch.io.synthetic import SyntheticSequence
     from plslam_tpu_torch.io.trajectory import load_trajectory_tum
     from plslam_tpu_torch.ops import fast_cuda, patches
     from plslam_tpu_torch.solvers import pose as pose_mod
     from plslam_tpu_torch.system import System
 
     with Phase("system"):
-        seq = SyntheticSequence(n_frames=SYS_STRIDE * SYS_BEFORE, seed=0, settings=settings,
-                                motion_scale=SYS_MOTION)
-        before = [SYS_STRIDE * i for i in range(SYS_BEFORE)]
-        after = [SYS_STRIDE * i for i in range(SYS_AFTER)]
-        inputs = [seq.frame(i) for i in before]
-        g, d, t = inputs[-1]
-        inputs += [(np.zeros_like(g), d, t + 0.03 * (j + 1)) for j in range(SYS_BLACK)]
-        inputs += [(g, d, t + 2.0) for g, d, t in (seq.frame(i) for i in after)]
-        gt_index = before + [None] * SYS_BLACK + after
+        seq, inputs, gt_index = _system_inputs(settings)
         n = len(inputs)
 
         slam = System(settings, use_local_mapping=False, use_loop_closing=False)
@@ -577,6 +607,220 @@ def run_mapping(name, settings, depth_range=None, **kw):
         require(np.array_equal(ts.local_set.numpy(), first["post"].local_set.cpu().numpy()),
                 "card and CPU working sets disagree")
     return launches
+
+
+def _strict(torch, fn, *args):
+    """fn(*args) under CUDA's sync debug mode "error": any host
+    synchronisation inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _pipe_run(settings, inputs, depth, traj, profile_chunk=None, **kw):
+    """System(settings, pipeline_depth=depth, **kw) over `inputs` on the
+    card, every chunk, single dispatch and keyframe chain under CUDA's sync
+    debug mode "error", each call timed without a synchronisation; the B1-B3
+    launches of each chunk, which call finalized which frame, and chunk
+    `profile_chunk` under torch.profiler. Saves the trajectory to `traj`.
+    -> dict of results."""
+    import torch
+
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.solvers import pose as pose_mod
+    from plslam_tpu_torch.system import System
+
+    slam = System(settings, pipeline_depth=depth, **kw)
+    wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
+    out = dict(slam=slam, chunks=0, singles=0, chunk_launches=[], finalized=[], prof=None, call=None)
+    chunk, single, chain, fin = (slam._dispatch_chunk, slam._dispatch_single, slam._dispatch_kf_chain,
+                                 slam._finalize_one)
+
+    def watched_chunk():
+        before = [w.launches for w in wrappers]
+        if out["chunks"] == profile_chunk:
+            out["prof"] = _profiled(lambda: _strict(torch, chunk))[1:]
+        else:
+            _strict(torch, chunk)
+        out["chunk_launches"].append([w.launches - b for w, b in zip(wrappers, before)])
+        out["chunks"] += 1
+
+    def watched_single(*a):
+        out["singles"] += 1
+        return _strict(torch, single, *a)
+
+    def watched_finalize():
+        ret = fin()
+        out["finalized"].append((out["call"], slam._timestamps[-1]))
+        return ret
+
+    slam._dispatch_chunk, slam._dispatch_single, slam._finalize_one = watched_chunk, watched_single, watched_finalize
+    out["chain_calls"] = []  # the call (None: the save's drain) that dispatched each chain
+
+    def watched_chain(k):
+        out["chain_calls"].append(out["call"])
+        return _strict(torch, chain, k)
+
+    slam._dispatch_kf_chain = watched_chain
+    for w in wrappers:
+        w.launches = 0
+    out["ms"], out["rets"] = [], []
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for i, (g, d, t) in enumerate(inputs):
+        out["call"] = i
+        t0 = time.perf_counter()
+        out["rets"].append(slam.track_rgbd(g, d, t))
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["call"] = None
+    slam.save_trajectory_tum(traj)  # finalizes the frames still in flight
+    torch.cuda.synchronize()
+    out["total_ms"] = (time.perf_counter() - t_all) * 1e3
+    out["launches"] = {w.__name__: w.launches for w in wrappers}
+    return out
+
+
+def _group_median(ms, k):
+    """bench.py's steady-state per-call time: the median over the means of
+    consecutive k-call groups (a pipelined call's time is bimodal)."""
+    n = len(ms) // k
+    return float(np.median(np.asarray(ms[: n * k]).reshape(n, k).mean(1)))
+
+
+def run_pipelined(settings):
+    """System(settings, pipeline_depth=PIPE_K) with every default at full
+    capacities on the card (see the module docstring); -> the B1-B3
+    launches of the first pipelined run."""
+    import torch
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.io.trajectory import load_trajectory_tum
+    from plslam_tpu_torch.system import System
+
+    K = PIPE_K
+    with Phase("pipelined"):
+        # the mapping phase's 30 frames, and the next 5 for localization mode
+        seq = SyntheticSequence(n_frames=MAP_FRAMES + 5, seed=0, settings=settings)
+        inputs = [seq.frame(i) for i in range(MAP_FRAMES)]
+        n = len(inputs)
+        work = ROOT / ".torch_build"
+        work.mkdir(parents=True, exist_ok=True)
+        # in turns: pipeline_depth=0, K, K, 0 (the second K run profiles one chunk)
+        sync = _pipe_run(settings, inputs, 0, work / "chip_smoke_pipe_sync.txt")
+        runs = [_pipe_run(settings, inputs, K, work / f"chip_smoke_pipe_{j}.txt", profile_chunk=3 if j else None)
+                for j in range(2)]
+        sync2 = _pipe_run(settings, inputs, 0, work / "chip_smoke_pipe_sync2.txt")
+        one = runs[0]
+        slam = one["slam"]
+        require(sync["slam"].use_loop_closing and slam._mapper is not None and slam.tracker.max_kf == 256,
+                "not the System with every default at full capacities")
+        # the lag contract: the first K calls return None, call i finalizes
+        # exactly frame i - K, the save finalizes the last K
+        during = [(c, t) for c, t in one["finalized"] if c is not None]
+        lag_ok = (all(r is None for r in one["rets"][:K]) and all(r is not None for r in one["rets"][K:])
+                  and [c for c, _ in during] == list(range(K, n))
+                  and all(t == seq.timestamp(c - K) for c, t in during) and len(one["finalized"]) == n)
+        est = load_trajectory_tum(work / "chip_smoke_pipe_0.txt")
+        ate, n_pairs = ate_rmse(est, seq.gt_trajectory())
+        same = (work / "chip_smoke_pipe_1.txt").read_bytes() == (work / "chip_smoke_pipe_0.txt").read_bytes()
+        same0 = (work / "chip_smoke_pipe_sync2.txt").read_bytes() == (work / "chip_smoke_pipe_sync.txt").read_bytes()
+        per_chunk = one["chunk_launches"]
+        log(f"pipeline_depth={K}: tracked {sum(slam.tracked_flags)}/{n}; ATE RMSE {ate * 100:.4f} cm over {n_pairs} "
+            f"frames; lag contract exact {lag_ok}; second run's trajectory byte-equal {same}; "
+            f"{one['chunks']} chunks + {one['singles']} frames dispatched singly (the save's drain), "
+            f"telemetry reads {slam.telemetry_reads} ({slam.telemetry_reads / n:.4f} per call; "
+            f"{sync['slam'].telemetry_reads / n:.4f} at pipeline_depth=0); aux reads {slam.aux_reads} for "
+            f"{slam._loop._kf_counter} chains; the two pipeline_depth=0 runs byte-equal {same0}")
+        log("B1 / B2 / B3 launches per chunk: " + " ".join("/".join(map(str, c)) for c in per_chunk))
+        log(f"launches during the first pipelined run: {one['launches']}")
+        for name, r in (("pipeline_depth=0", sync), (f"pipeline_depth={K}", one),
+                        (f"pipeline_depth={K} (profiles a chunk)", runs[1]), ("pipeline_depth=0", sync2)):
+            plain = [m for i, m in enumerate(r["ms"]) if i not in r["chain_calls"]]
+            log(f"{name}: ms per track_rgbd call, median over {K}-call group means {_group_median(r['ms'], K):.3f}; "
+                f"median of the calls that dispatch no chain {statistics.median(plain):.3f}; the {n} calls and "
+                f"the save's drain end to end {r['total_ms']:.1f} ms; {len(r['chain_calls'])} chains, dispatched "
+                f"in calls {r['chain_calls']}")
+        log(f"ms per call: pipeline_depth={K} " + " ".join(f"{m:.1f}" for m in one["ms"]))
+        log("ms per call: pipeline_depth=0 " + " ".join(f"{m:.1f}" for m in sync["ms"]))
+        wall, launches, copies, busy, top = runs[1]["prof"]
+        log(f"one chunk ({K} frames, the second run's 4th) under the profiler: {launches} kernel launches "
+            f"({launches / K:.0f} per frame), {copies} copies, {busy:.3f} ms device-busy in {wall:.3f} ms "
+            f"(dispatch to its last kernel), idle {1.0 - busy / wall:.1%}")
+        log(f"  chunk kernels with the most device time (launches, ms): {top}")
+        require(lag_ok, "the lag contract does not hold")
+        require(slam.tracked_flags == [True] * n, "a frame was not tracked")
+        require(ate <= 0.02, f"ATE {ate:.4f} m above 2 cm")
+        require(same, "two pipelined runs wrote different trajectories")
+        require(one["chunks"] == n // K and one["singles"] == n % K
+                and slam.telemetry_reads == one["chunks"] + one["singles"], "not one telemetry read per chunk")
+        require(sync["slam"].telemetry_reads == n, "not one telemetry read per call at pipeline_depth=0")
+        require(all(c[0] == K and c[1] == K for c in per_chunk) and per_chunk[0][2] == 2 * (K - 1)
+                and all(c[2] == 2 * K for c in per_chunk[1:]),
+                "B1/B2 not launched K times per chunk, or B3 not twice per tracked frame")
+        require(slam.aux_reads == slam._loop._kf_counter >= 2, "not one aux read per chain")
+
+        # what deciding the step's switches on the device costs, at full
+        # capacities on the run's state: the init branch (run beside the
+        # track branch while the status is unknown) and the working-set scan
+        # (every frame of a mapper-less System)
+        tr, st = slam.tracker, slam.state
+        frame = slam.builder(*inputs[-1][:2])
+        for what, fn in (("init branch", lambda: tr._do_init(st, frame)),
+                         ("working-set scan", lambda: tr._compute_local_set(st.m, st.ref_kf))):
+            n_launch = _profiled(fn)[2]
+            log(f"{what}: {n_launch} kernel launches, {cuda_ms(torch, fn):.4f} ms on the card")
+
+        # the other depths on the first 12 frames: the same contract
+        for k in (1, 2):
+            r = _pipe_run(settings, inputs[:12], k, work / f"chip_smoke_pipe_k{k}.txt")
+            ok = ([c for c, _ in r["finalized"] if c is not None] == list(range(k, 12))
+                  and r["slam"].tracked_flags == [True] * 12
+                  and r["slam"].telemetry_reads == r["chunks"] + r["singles"] == 12 // k)
+            log(f"pipeline_depth={k}, 12 frames: lag contract, 12/12 tracked and one read per chunk {ok}")
+            require(ok, f"pipeline_depth={k} breaks the contract")
+
+        # snapshots: the run's map saved and loaded in a fresh System on the
+        # card (and on the CPU path), then tracked in localization mode
+        path = work / "chip_smoke_map.npz"
+        slam.save_map(path)
+        fresh = System(settings, pipeline_depth=K)
+        fresh.load_map(path)
+        apart = _differing(fresh.state, slam.state)
+        bow_eq = bool(torch.equal(fresh._reloc.kf_bow, slam._reloc.kf_bow))
+        cpu = System(settings, device="cpu")
+        cpu.load_map(path)
+        apart_cpu = _differing(cpu.state, _to(slam.state, "cpu"))
+        fresh.activate_localization_mode()
+        m0 = _to(fresh.state.m, fresh.device)
+        for g, d, t in (seq.frame(i) for i in range(MAP_FRAMES, MAP_FRAMES + 5)):
+            fresh.track_rgbd(g, d, t)
+        fresh._flush_pending()
+        moved = _differing(fresh.state.m, m0)
+        log(f"snapshot ({path.stat().st_size} bytes): loaded on the card, fields not bit for bit equal "
+            f"{apart or 'none'}, BoW rows equal {bow_eq}, keyframe timestamps equal "
+            f"{fresh._kf_timestamps == slam._kf_timestamps}; loaded on the CPU path, fields not equal "
+            f"{apart_cpu or 'none'}; 5 localization-mode frames: tracked {sum(fresh.tracked_flags)}/5, "
+            f"map fields changed {moved or 'none'}")
+        require(not apart and bow_eq and fresh._kf_timestamps == slam._kf_timestamps, "the snapshot does not load back")
+        require(not apart_cpu, "the snapshot does not load on the CPU path")
+        require(fresh.tracked_flags == [True] * 5 and not moved, "localization mode changed the map")
+
+        # the system phase's blackout fixture, pipelined (mapper-less)
+        _, binputs, _ = _system_inputs(settings)
+        black = _pipe_run(settings, binputs, K, work / "chip_smoke_pipe_black.txt",
+                          use_local_mapping=False, use_loop_closing=False)
+        bs = black["slam"]
+        log(f"blackout fixture at pipeline_depth={K}: {len(binputs)} calls, tracked {sum(bs.tracked_flags)}; "
+            f"state after the flush {bs.get_tracking_state()}; telemetry reads {bs.telemetry_reads} "
+            f"({black['chunks']} chunks + {black['singles']} singly)")
+        require(bs.get_tracking_state() == "OK", "not OK after the blackout's flush")
+        require(all(bs.tracked_flags[:SYS_BEFORE]) and bs.telemetry_reads == black["chunks"] + black["singles"],
+                "blackout fixture: a frame before the blackout lost, or not one read per dispatch")
+        require(all(v > 0 for v in one["launches"].values()), "a kernel of the pipelined path was not launched")
+    return one["launches"]
 
 
 def _gap(est, seq, revisit):
@@ -1099,6 +1343,8 @@ def main() -> int:
         kernels[name]["launches"] = n
     run_mapping("mapping TUM1", settings, depth_range=MAP_DEPTH_RANGE)
     run_mapping("mapping TUM3", lines_settings, use_loop_closing=False)
+    pipe_launches = run_pipelined(lines_settings)
+    log(f"kernel launches during the first pipelined run: {pipe_launches}")
     loop_launches = run_loop()
     log(f"kernel launches during the TUM2 loop-on run: {loop_launches}")
 

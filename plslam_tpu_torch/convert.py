@@ -103,6 +103,8 @@ def system_from_numpy(system, state, kf_bow, timestamps, rel_poses, ref_ids, tra
     system._recent_rebase = {int(j): (int(p), np.asarray(M, np.float64).reshape(4, 4))
                              for j, (p, M) in dict(recent_rebase or {}).items()}
     system._last_frame = None
+    # what the System knows of the status picks the step's init/track branch
+    system._initialised = int(np.asarray(_fields(state)["status"])) != 0
     system.localization_only = bool(np.asarray(_fields(state)["only_tracking"]))
     if loop is not None:
         loop_closer_from_numpy(system._loop, **loop)

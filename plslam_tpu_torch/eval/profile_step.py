@@ -47,7 +47,7 @@ def main(argv=None) -> int:
     from plslam_tpu_torch import load_settings
     from plslam_tpu_torch.features.frame import FrameBuilder
     from plslam_tpu_torch.io.synthetic import SyntheticSequence
-    from plslam_tpu_torch.pipeline.tracking import Tracker
+    from plslam_tpu_torch.pipeline.tracking import ST_UNINIT, Tracker
 
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA card", file=sys.stderr)
@@ -58,15 +58,17 @@ def main(argv=None) -> int:
     frames = [seq.frame(i)[:2] for i in range(w + 2 * f)]
     builder, tracker = FrameBuilder(s), Tracker(s)
     state = tracker.init_state()
+    known = False  # the status as System knows it: read until the state is initialised
 
     def run(chunk):
-        nonlocal state
+        nonlocal state, known
         wall = []
         for g, d in chunk:
             t0 = time.perf_counter()
-            state, _ = tracker.step(state, builder(g, d))
+            state, _ = tracker.step(state, builder(g, d), initialised=known)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
+            known = known or int(state.status) != ST_UNINIT
         return wall
 
     run(frames[:w])

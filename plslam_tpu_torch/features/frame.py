@@ -128,8 +128,16 @@ class FrameBuilder:
         return a.to(self.device, torch.float32)
 
     def __call__(self, gray, depth) -> FrameData:
-        """gray f32[H, W] (0..255), depth f32[H, W] metres (numpy or tensor)."""
-        gray, depth = self._as_tensor(gray), self._as_tensor(depth)
+        """gray f32[H, W] (0..255), depth f32[H, W] metres (numpy or tensor),
+        uploaded to the builder's device (a blocking copy from host memory)."""
+        return self.build(self._as_tensor(gray), self._as_tensor(depth))
+
+    def build(self, gray, depth) -> FrameData:
+        """The frame from gray and depth f32[H, W] tensors already on the
+        builder's device: no upload and, once the first frame has copied the
+        builder's constant tables, no host synchronisation."""
+        if gray.device.type != self.device.type or depth.device.type != self.device.type:
+            raise ValueError(f"FrameBuilder.build wants tensors on {self.device}, got {gray.device} / {depth.device}")
         fs = self.extractor(gray)
         uv_raw = fs.uv
         # undistort a zeroed stand-in for padded slots: the fixed point

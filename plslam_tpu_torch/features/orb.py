@@ -77,19 +77,10 @@ class ORBExtractor:
         if sum(self.per_level) > capacity:
             raise ValueError(f"feature budget {sum(self.per_level)} exceeds capacity {capacity}")
         self.scales = [scale_factor**l for l in range(n_levels)]
-        self._consts = {}
 
     def _device_consts(self, device):
-        """(octave per slot i32[N], level scales f32[L]) on `device`,
-        uploaded once per device."""
-        key = str(device)
-        if key not in self._consts:
-            oct_ = np.concatenate([np.full(k, l, np.int32) for l, k in enumerate(self.per_level) if k])
-            self._consts[key] = (
-                torch.from_numpy(oct_).to(device),
-                torch.tensor(self.scales, dtype=torch.float32).to(device),
-            )
-        return self._consts[key]
+        """(octave per slot i32[N], level scales f32[L]) on `device`."""
+        return _consts_on(tuple(self.per_level), tuple(self.scales), str(device))
 
     def __call__(self, gray) -> FeatureSet:
         """gray f32[H, W] (0..255) on the target device -> FeatureSet."""
@@ -129,6 +120,14 @@ class ORBExtractor:
             desc=padded(desc),
             valid=padded(val_f),
         )
+
+
+@functools.lru_cache(maxsize=8)
+def _consts_on(per_level: tuple, scales: tuple, device: str):
+    """ORBExtractor's constants on `device`, uploaded once per process (a
+    copy from host memory in a frame's build would block the host)."""
+    oct_ = np.concatenate([np.full(k, l, np.int32) for l, k in enumerate(per_level) if k])
+    return torch.from_numpy(oct_).to(device), torch.tensor(scales, dtype=torch.float32).to(device)
 
 
 @functools.lru_cache(maxsize=2)

@@ -82,8 +82,8 @@ def _recip(n: int) -> float:
 
 def _linspace01(n: int, device):
     t = torch.arange(n, dtype=torch.float32, device=device) * _recip(n - 1)
-    t[-1] = 1.0
-    return t
+    # the last sample exactly 1; `t[-1] = 1.0` would copy the number from the host
+    return torch.where(torch.arange(n, device=device) == n - 1, 1.0, t)
 
 
 def _bilinear(img, x, y):

@@ -100,6 +100,12 @@ _AT = _f32s("3.3333334327e-01", "-2.0000000298e-01", "1.4285714924e-01", "-1.111
 _PI, _PI_O_2, _PI_LO = _f32s("3.1415927410e+00", "1.5707963705e+00", "-8.7422776573e-08")
 
 
+@functools.lru_cache(maxsize=4)
+def _atan_table_on(device: str):
+    """fdlibm's atan(hi, lo) table f32[2, 4] on `device`, copied once."""
+    return torch.tensor([_ATAN_HI, _ATAN_LO], dtype=torch.float32, device=device)
+
+
 def _atanf_fdlibm(x):
     """fdlibm's atanf on a finite f32 tensor, operation for operation."""
     ix = x.view(torch.int32) & 0x7FFFFFFF
@@ -117,8 +123,8 @@ def _atanf_fdlibm(x):
     a = _AT
     s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (a[8] + w * a[10])))))
     s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
-    hi = torch.tensor(_ATAN_HI, dtype=x.dtype, device=x.device)[idx]
-    lo = torch.tensor(_ATAN_LO, dtype=x.dtype, device=x.device)[idx]
+    table = _atan_table_on(str(x.device))
+    hi, lo = table[0][idx], table[1][idx]
     zz = hi - ((t * (s1 + s2) - lo) - t)
     out = torch.where(small, torch.where(ix < 0x31000000, x, t - t * (s1 + s2)), torch.where(x < 0, -zz, zz))
     big = torch.where(x < 0, -(_ATAN_HI[3] + _ATAN_LO[3]), _ATAN_HI[3] + _ATAN_LO[3])

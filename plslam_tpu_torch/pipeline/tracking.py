@@ -9,12 +9,19 @@ landmark / map-line insertion. State is fixed-capacity and mask-driven
 like the reference's.
 
 Differences in mechanism (results are the reference's):
-  * The reference's `lax.cond`s: the ref-KF fallback (tracking.py:700) is
+  * The reference's `lax.cond`s are decided on the device, with no host
+    synchronisation in the step. The ref-KF fallback (tracking.py:700) is
     computed beside the motion-model result and picked with `torch.where`.
-    The init/track switch (:871) and the in-step working-set refresh
-    (:908, only with `in_step_local_refresh`) are host branches on a device
-    flag: up to two host synchronisations per frame, which block
-    CUDA-graph capture of the step.
+    The init/track switch (:871) runs one branch where the caller knows
+    the status (`step(..., initialised=)`; System always knows it at
+    `pipeline_depth=0`, and from the first finalized frame on when
+    pipelined) and both, picked field by field with `torch.where`, where
+    it does not: an unknown status costs the init branch (a few fills, no
+    B3 launch) and the pick. The in-step working-set refresh (:908, only
+    with `in_step_local_refresh`) is computed on every frame and kept
+    where a keyframe was inserted: the covisibility scan on every frame of
+    a mapper-less caller. chip_smoke.py's pipelined phase measures the
+    launches and device time of both (PERF.md, §5).
   * Scatters with `mode="drop"` route out-of-range rows to a scratch row;
     among duplicate targets the last source row wins, as on the
     reference's CPU backend.
@@ -532,12 +539,13 @@ class Tracker:
 
         # ---- 1b. TrackReferenceKeyFrame fallback, computed beside the
         # motion-model result and selected (the reference's lax.cond)
-        ref = ts.ref_kf.long()
-        ref_lm_row = m.kf_lm_idx[ref]
+        ref = ts.ref_kf
+        ref_lm_row = take_row(m.kf_lm_idx, ref)
+        ref_feat_valid = take_row(m.kf_feat_valid, ref)
         mb, _ = match_ops.match_descriptors(
-            frame.pm1, frame.valid, brief.unpack_bits_pm1(m.kf_desc[ref]),
-            m.kf_feat_valid[ref] & (ref_lm_row >= 0),
-            th_dist=C.TH_LOW, nn_ratio=0.7, angle_a=frame.angle, angle_b=m.kf_angle[ref],
+            frame.pm1, frame.valid, brief.unpack_bits_pm1(take_row(m.kf_desc, ref)),
+            ref_feat_valid & (ref_lm_row >= 0),
+            th_dist=C.TH_LOW, nn_ratio=0.7, angle_a=frame.angle, angle_b=take_row(m.kf_angle, ref),
         )
         lm_fb = torch.where(mb >= 0, ref_lm_row[torch.clamp(mb, min=0).long()], -1)
         has_fb = frame.valid & (lm_fb >= 0)
@@ -620,7 +628,7 @@ class Tracker:
         need_close = (tracked_close < round(C.KF_TRACKED_CLOSE_MIN * feat_scale)) & (
             free_close > round(C.KF_NONTRACKED_CLOSE_MIN * feat_scale)
         )
-        ref_lm_ok = (ref_lm_row >= 0) & m.kf_feat_valid[ref]
+        ref_lm_ok = (ref_lm_row >= 0) & ref_feat_valid
         ref_nobs = m.pt_nobs[torch.clamp(ref_lm_row, min=0).long()]
         min_obs = torch.where(m.n_kf <= 2, 2, 3)
         ref_matches = torch.sum(ref_lm_ok & (ref_nobs >= min_obs))
@@ -642,12 +650,22 @@ class Tracker:
             vis_ws=vis, already=already, ml_vis=ml_vis,
         )
 
-    def step(self, ts: TrackState, frame: FrameData):
-        """One frame -> (new TrackState, StepOut)."""
+    def step(self, ts: TrackState, frame: FrameData, initialised: bool | None = None):
+        """One frame -> (new TrackState, StepOut). Nothing is read back.
+
+        initialised: what the caller knows of ts.status. False: UNINIT, only
+        the init branch runs; True: OK or LOST, only the track branch runs;
+        None: unknown, both run and each output is picked on the device
+        (the reference's lax.cond at tracking.py:871). Status returns to
+        UNINIT only through init_state or a failed init, so once a frame
+        has read OK or LOST every later state is initialised."""
         P = self.max_pts
         is_init = torch.clamp(ts.status, 0, 2) == ST_UNINIT
-        # host branch (the reference's lax.cond at tracking.py:871)
-        req = self._do_init(ts, frame) if bool(is_init) else self._do_track(ts, frame)
+        if initialised is None:
+            a, b = self._do_init(ts, frame), self._do_track(ts, frame)
+            req = _BranchOut(*(torch.where(is_init, x, y) for x, y in zip(a, b)))
+        else:
+            req = self._do_track(ts, frame) if initialised else self._do_init(ts, frame)
 
         # ---- epilogue: all map mutation happens here
         m = ts.m
@@ -669,11 +687,11 @@ class Tracker:
         lm_final = torch.where(did_insert, row_lm, req.lm_of_kp)
         ref_kf = torch.where(did_insert, k, ts.ref_kf)
         local_set = ts.local_set
-        # host branch (the reference's lax.cond at tracking.py:908): the
-        # covisibility scan runs on keyframe frames only; callers that
-        # refresh the set themselves skip it (and the sync)
-        if self.in_step_local_refresh and bool(did_insert):
-            local_set = self._compute_local_set(m, k)
+        # the reference's lax.cond at tracking.py:908, picked on the device:
+        # the working set around a keyframe inserted here; callers that
+        # refresh the set themselves skip the scan
+        if self.in_step_local_refresh:
+            local_set = torch.where(did_insert, self._compute_local_set(m, k), local_set)
         last_new = LastFrame(
             uvr=frame.uvr, octave=frame.octave, angle=frame.angle,
             desc=frame.desc, depth=frame.depth, valid=frame.valid,
@@ -681,7 +699,7 @@ class Tracker:
         )
         last = LastFrame(*(torch.where(req.update_last, a, b) for a, b in zip(last_new, ts.last)))
         n_init = torch.sum(row_lm >= 0).to(torch.int32)
-        rel_pose = torch.where(is_init, self._eye4(), se3.compose(req.Tcw, se3.inverse(m.kf_pose[ref_kf.long()])))
+        rel_pose = torch.where(is_init, self._eye4(), se3.compose(req.Tcw, se3.inverse(take_row(m.kf_pose, ref_kf))))
         new_ts = ts._replace(
             m=m,
             velocity=req.velocity,

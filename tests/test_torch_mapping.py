@@ -198,7 +198,7 @@ def test_chain_reproduces_reference(run, i):
     slam = convert.system_from_numpy(System(run["settings"], use_loop_closing=False, device="cpu", **CAPS),
                                      **c["pre"])
     aux = slam._dispatch_kf_chain(c["kf_id"])
-    slam._process_chain_results(aux)
+    slam._process_chain_results()
     ts, want = slam.state, c["post"]
     pre, post, got = c["pre"]["state"].m, want["state"].m, ts.m
     for name in EXACT:
@@ -533,7 +533,7 @@ def test_rebase_aux_matches_reference():
 def test_apply_rebase_matches_reference():
     """_apply_rebase re-anchors the rows of the culled slot as the
     reference's does; a later row that references it is rebased by
-    _finalize_one through _recent_rebase, and reset() forgets it."""
+    _finalize_row through _recent_rebase, and reset() forgets it."""
     m, prev = _culled_state()
     culled, p_of, M = (np.asarray(a) for a in j_rebase_aux(jax.tree_util.tree_map(jnp.asarray, m),
                                                              jnp.asarray(prev)))
@@ -559,7 +559,7 @@ def test_apply_rebase_matches_reference():
     v[tracking.TEL_TRACKED], v[tracking.TEL_STATUS], v[tracking.TEL_REF_KF] = 1, tracking.ST_OK, CULLED
     v[tracking.TEL_REL_POSE] = np.eye(4, dtype=np.float32).reshape(-1)
     v[tracking.TEL_TCW] = np.eye(4, dtype=np.float32).reshape(-1)
-    slam._finalize_one(v, None, 1.0, 0.0)
+    slam._finalize_row(v, None, 1.0, 0.0)
     p, Mj = got._recent_rebase[CULLED]
     assert slam._ref_ids == [p]
     np.testing.assert_array_equal(slam._rel_poses[0], Mj)

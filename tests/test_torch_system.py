@@ -241,16 +241,19 @@ def test_options_outside_the_slice_raise(run, tmp_path):
     gba = LocalBA(mapped.tracker, global_mode=True)
     assert (gba.W, gba.Pl, gba.Ql) == (mapped.tracker.max_kf, mapped.tracker.max_pts, mapped.tracker.max_maplines)
     assert callable(gba.slice_runner(5, 0, False))
-    with pytest.raises(NotImplementedError, match="A18"):
-        System(s, use_local_mapping=False, use_loop_closing=False, pipeline_depth=2, device="cpu")
+    # the pipelined mode and map snapshots are ported: a pipelined System
+    # constructs, and a save / load round trip returns with the state intact
+    piped = System(s, use_local_mapping=False, use_loop_closing=False, pipeline_depth=2, device="cpu")
+    assert piped.pipeline_depth == 2 and piped.tracker.in_step_local_refresh
     with pytest.raises(NotImplementedError, match="A21"):
         System(dataclasses.replace(s, line_backend="host"), use_local_mapping=False, use_loop_closing=False,
                device="cpu")
     slam = run["got_sys"]
-    for call in (lambda: slam.save_map(tmp_path / "m.npz"), lambda: slam.load_map(tmp_path / "m.npz"),
-                 lambda: slam.dump_debug_images(tmp_path)):
-        with pytest.raises(NotImplementedError, match="A19"):
-            call()
+    kept = slam.state
+    assert slam.save_map(tmp_path / "m.npz") is None and slam.load_map(tmp_path / "m.npz") is None
+    assert torch.equal(slam.state.m.kf_pose, kept.m.kf_pose) and torch.equal(slam.state.local_set, kept.local_set)
+    with pytest.raises(NotImplementedError, match="A21"):
+        slam.dump_debug_images(tmp_path)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             System(s, use_local_mapping=False, use_loop_closing=False)
