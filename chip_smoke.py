@@ -11,8 +11,10 @@ Phases, each timed and printed:
               PyTorch twin on the card (max abs error vs the stated
               tolerance), with CUDA-event times and the least time the card
               could take for the same work; B3 also at its latency floor
-              (no valid row) and with P = 2 stacked problems, as the
-              tracker's motion-model + fallback call gives it;
+              (no valid row), with P = 2 stacked problems, as the
+              tracker's motion-model + fallback call gives it, and under
+              torch.func.vmap with 4 sequences of such a pair: the custom
+              op's vmap rule makes it one launch of 8 problems;
   4. fast     the single-image FAST entry (ops/fast.py fast_with_fallback,
               kernel B4) on 30 synthetic 640x480 frames, B4's launches
               counted during exactly this run, held against the CPU path;
@@ -48,7 +50,35 @@ Phases, each timed and printed:
               chain replayed under torch.profiler (launches, device-busy
               time, launches by stage) and held bit for bit to the run's
               own; the first triangulating chain held against the CPU path.
-  9. pipelined  System(configs/TUM3.yaml, pipeline_depth=4) with every
+  9. low_texture  BASELINE.json config 3: System(settings) with every default
+              capacity on SyntheticSequence(30 frames, 640x480, seed 5,
+              low_texture=True) and its settings (lines on, device LSD,
+              mapper and loop closing on), held to the reference test's four
+              assertions (tests/test_lines.py:188-207): every frame tracked,
+              more than 10 map lines, more than 5 observed more than twice,
+              ATE < 2 cm; every chain under CUDA's sync debug mode "error";
+              ms per call and per chain.
+ 10. batched  BASELINE.json config 5: BatchedTracker + BatchedMapper
+              (parallel/batch.py, torch.func.vmap) on 4 sequences (seeds 1,
+              12, 23, 34; 640x480, 25 frames, max_pts 8192, max_kf 64, as
+              examples/multi_sequence.py), frames built per sequence: every
+              sequence tracked on every frame, each ATE <= 2 cm (trajectory
+              rebuilt from the final keyframe poses, as the example writes
+              it), B3 launched twice per batched tracked step (not 2 x 4), B1
+              and B2 once per sequence per frame, the batched step and chain
+              under sync debug "error" and vmap's per-sample fallback warning
+              ("performance drop") an error; the first 5 frames of the 4
+              sequences stepped batched without the mapper against each
+              sequence stepped alone on the card (flags equal, poses to 1e-4
+              m), and with the chains (printed); the batched chain replayed
+              (bit for bit the run's own), a masked row bit for bit its
+              input, the first chain's rows bit for bit the solo chain on
+              the card, the last chain's rows against the solo chain
+              printed beside the card's solo chain against the CPU path;
+              one batched step and one solo step under torch.profiler
+              (launches, device-busy); ms per batched step and chain,
+              aggregate frames/s.
+ 11. pipelined  System(configs/TUM3.yaml, pipeline_depth=4) with every
               default at full capacities (mapper and loop closing on) on the
               mapping phase's 30 frames, in turns with pipeline_depth=0 (0,
               4, 4, 0): every chunk dispatch, single dispatch and keyframe
@@ -67,7 +97,7 @@ Phases, each timed and printed:
               for bit equal), 5 frames in localization mode (the map
               unchanged), and the system phase's blackout fixture pipelined
               (OK after the flush).
- 10. loop     System(settings) with every default, loop closing on, full
+ 12. loop     System(settings) with every default, loop closing on, full
               capacities: (a) tests/test_loop_e2e.py's fixture,
               SyntheticSequence(190 frames, 320x240, seed 0, "loop", 10 fps,
               depth_noise 0.03) with loop closing on and off, held to the
@@ -89,8 +119,9 @@ Phases, each timed and printed:
               equal); the same for the run's last global-BA slice (the one
               with the outlier sweep). Printed: ms per closure, per slice,
               per tracked call and per chain.
-Then one JSON line with the kernels (launches: B1-B3 from system, the
-public entry; B4 from fast; the pipelined phase prints its own), and as
+Then one JSON line with the kernels (launches: B1-B3 from batched, this
+slice's path; B4 from fast; the system, pipelined and loop phases print
+their own), and as
 the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
 failure exits non-zero; without CUDA the script exits non-zero at once.
@@ -102,6 +133,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -122,6 +154,16 @@ PIPE_K = 4  # the pipelined phase's pipeline_depth, as bench.py runs the referen
 # the loop phase: tests/test_loop_e2e.py's fixture, and TUM2 on its circuit
 LOOP_FRAMES, LOOP_REVISIT = 190, 150
 TUM2_FRAMES, TUM2_REVISIT = 190, 150
+# the low_texture phase (BASELINE.json config 3): the reference test's scene
+# (tests/test_lines.py:15) at full width
+LT_FRAMES = 30
+# the batched phase (BASELINE.json config 5): examples/multi_sequence.py's
+# capacities, 4 sequences of its seed rule 11 b + 1
+BATCH_SEEDS = (1, 12, 23, 34)
+BATCH_FRAMES = 25
+BATCH_CAPS = dict(max_pts=8192, max_kf=64)
+BATCH_SOLO_FRAMES = 5  # frames of each sequence also run alone
+BATCH_PROFILE_FRAME = 10
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU clock ahead of each timed call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -141,6 +183,11 @@ TOL_B4 = 1e-2
 TOL_B2 = 0.0
 TOL_B3_POSE = 1e-4
 TOL_B3_FLIPS = 2
+# A batched row against the same sequence run alone on the card: the
+# step's ops reduce over a batch in other orders than over one sequence,
+# B3 solves each problem in a block of its own either way; flags equal,
+# poses to 1e-4 m
+TOL_BATCH_POSE = 1e-4
 # A keyframe chain on the card against the CPU path from one pre-chain
 # state: every index, flag, counter and descriptor equal; local BA's plain
 # LM phase follows float32 rounding (cuBLAS and the CPU's BLAS sum the
@@ -1019,6 +1066,290 @@ def _closure_checks(name, settings, run):
             and np.percentile(dp, 99) <= TOL_CHAIN_PT_P99, "card and CPU global-BA slices disagree")
 
 
+def run_low_texture():
+    """BASELINE.json config 3: System with every default on the low-texture scene
+    (see the module docstring); -> ms per call and per chain."""
+    import torch
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.system import System
+
+    with Phase("low_texture"):
+        seq = SyntheticSequence(n_frames=LT_FRAMES, height=480, width=640, seed=5, low_texture=True)
+        settings = seq.settings
+        require(settings.use_lines and settings.line_backend == "device", "the scene's settings should run device lines")
+        slam = System(settings)
+        require(slam._mapper is not None, "System runs without its local mapper")
+        chains = []
+        dispatch = slam._dispatch_kf_chain
+
+        def watched(kf_id):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = _strict(torch, dispatch, kf_id)
+            torch.cuda.synchronize()
+            chains.append((time.perf_counter() - t0) * 1e3)
+            return aux
+
+        slam._dispatch_kf_chain = watched
+        ms_call, rows = [], []
+        for i in range(LT_FRAMES):
+            g, d, t = seq.frame(i)
+            t0 = time.perf_counter()
+            Tcw = slam.track_rgbd(g, d, t)
+            torch.cuda.synchronize()
+            ms_call.append((time.perf_counter() - t0) * 1e3)
+            rows.append((Tcw, slam.last_frame_was_kf))
+        tracked = [k for k in range(LT_FRAMES) if rows[k][0] is not None]
+        m = slam.state.m
+        n_lines = int(m.ln_valid.sum())
+        n_reobs = int((m.ln_nobs[m.ln_valid] > 2).sum())
+        n_reobs_all = int((m.ln_nobs > 2).sum())
+        with tempfile.TemporaryDirectory() as tmp:
+            slam.save_trajectory_tum(Path(tmp) / "traj.txt")
+            from plslam_tpu_torch.io.trajectory import load_trajectory_tum
+
+            ate, n_pairs = ate_rmse(load_trajectory_tum(Path(tmp) / "traj.txt"), seq.gt_trajectory())
+        plain = [ms_call[k] for k in tracked if not rows[k][1]]
+        log(f"tracked {len(tracked)}/{LT_FRAMES}; {n_lines} map lines, {n_reobs_all} observed more than twice "
+            f"({n_reobs} of them valid); {int(m.n_kf)} keyframes, {int(m.n_pt)} points; ATE RMSE {ate * 100:.4f} cm "
+            f"over {n_pairs} frames")
+        log(f"median {statistics.median(ms_call):.3f} ms per call ({statistics.median(plain):.3f} ms without a "
+            f"keyframe); {len(chains)} chains, median {statistics.median(chains):.3f} ms per chain (first "
+            f"{chains[0]:.3f} ms); every chain under sync debug \"error\"")
+        # the reference's config-3 assertions (tests/test_lines.py:188-207)
+        require(len(tracked) == LT_FRAMES, "a frame was not tracked")
+        require(n_lines > 10, f"{n_lines} map lines, not more than 10")
+        require(n_reobs_all > 5, f"{n_reobs_all} lines observed more than twice, not more than 5")
+        require(ate < 0.02, f"ATE {ate:.4f} m not below 2 cm")
+    return dict(ms_call=statistics.median(ms_call), ms_chain=statistics.median(chains))
+
+
+def _known_status(status):
+    """What a host knows of a batch's statuses: False all UNINIT, True none,
+    None mixed (examples/multi_sequence.py)."""
+    from plslam_tpu_torch.examples.multi_sequence import known_status
+
+    return known_status(np.asarray(status, np.int64))
+
+
+def run_batched():
+    """BASELINE.json config 5: BatchedTracker + BatchedMapper on 4 sequences (see
+    the module docstring); -> the B1-B3 launches of the batched run."""
+    import warnings
+
+    import torch
+
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.features.frame import FrameBuilder
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.parallel.batch import BatchedMapper, BatchedTracker, stack, unstack
+    from plslam_tpu_torch.pipeline import tracking as T
+    from plslam_tpu_torch.pipeline.mapping import LocalMapper
+    from plslam_tpu_torch.solvers import pose as pose_mod
+
+    B = len(BATCH_SEEDS)
+    with Phase("batched"), warnings.catch_warnings():
+        # a per-sample fallback of torch.func.vmap is an error here
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        seqs = [SyntheticSequence(n_frames=BATCH_FRAMES, height=480, width=640, seed=s) for s in BATCH_SEEDS]
+        settings = seqs[0].settings
+        inputs = [[s.frame(i) for s in seqs] for i in range(BATCH_FRAMES)]
+        builder = FrameBuilder(settings)
+        tracker = T.Tracker(settings, max_pts=BATCH_CAPS["max_pts"], max_kf=BATCH_CAPS["max_kf"])
+        mapper = LocalMapper(tracker)
+        bt, bm = BatchedTracker(tracker, batch=B), BatchedMapper(mapper)
+
+        # warm-up on a throwaway state: constant tables, cuBLAS, the chain
+        ws = bt.init_state()
+        for i in range(2):
+            ws, wo = bt.step(ws, stack([builder(g, d) for g, d, _ in inputs[i]]), initialised=i > 0)
+        bm.process(ws.m, wo.kf_id, torch.ones(B, dtype=torch.bool, device=wo.kf_id.device))
+        del ws, wo
+        torch.cuda.synchronize()
+
+        wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
+        for w in wrappers:
+            w.launches = 0
+        state = bt.init_state()
+        known = False
+        rows, b3_step, ms_build, ms_step, ms_chain, prof_in, first_chain = [], [], [], [], [], None, None
+        for i in range(BATCH_FRAMES):
+            t0 = time.perf_counter()
+            batch = stack([builder(g, d) for g, d, _ in inputs[i]])  # B1, B2 once per sequence
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == BATCH_PROFILE_FRAME:
+                prof_in = (state, batch, known)
+            b3 = pose_mod.pose_lm.launches
+            state, out = _strict(torch, bt.step, state, batch, known)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            b3_step.append(pose_mod.pose_lm.launches - b3)
+            new_kf = out.new_kf.cpu().numpy()
+            if new_kf.any():  # no sequence made a keyframe: the masked chain would change nothing
+                pre_m = state.m
+                state = state._replace(m=_strict(torch, bm.process, state.m, out.kf_id, out.new_kf))
+                torch.cuda.synchronize()
+                last_chain = (pre_m, out.kf_id, out.new_kf, state.m)
+                first_chain = first_chain or last_chain
+                ms_chain.append((time.perf_counter() - t2) * 1e3)
+            t3 = time.perf_counter()
+            ms_build.append((t1 - t0) * 1e3)
+            ms_step.append((t2 - t1) * 1e3)
+            tel = out.telemetry.cpu().numpy()
+            known = _known_status(tel[:, T.TEL_STATUS])
+            rows.append(dict(tel=tel, Tcw=out.Tcw.cpu().numpy().astype(np.float64), ms=(t3 - t1) * 1e3,
+                             chain=bool(new_kf.any())))
+        launches = {w.__name__: w.launches for w in wrappers}
+        kf_poses = state.m.kf_pose.cpu().numpy().astype(np.float64)
+
+        n = BATCH_FRAMES
+        tracked = np.array([[bool(r["tel"][b, T.TEL_TRACKED]) for r in rows] for b in range(B)])
+        ates = []
+        for b in range(B):
+            est = [(seqs[b].timestamp(i), np.linalg.inv(rows[i]["tel"][b, T.TEL_REL_POSE].reshape(4, 4)
+                                                         .astype(np.float64) @ kf_poses[b, int(rows[i]["tel"][b, T.TEL_REF_KF])]))
+                   for i in range(n) if tracked[b, i]]
+            ates.append(ate_rmse(est, seqs[b].gt_trajectory())[0])
+        kf_frames = [[i for i in range(n) if rows[i]["tel"][b, T.TEL_NEW_KF]] for b in range(B)]
+        log(f"seeds {list(BATCH_SEEDS)}, {n} frames, 640x480, max_pts {BATCH_CAPS['max_pts']}, "
+            f"max_kf {BATCH_CAPS['max_kf']}")
+        for b in range(B):
+            log(f"  seq {b}: tracked {int(tracked[b].sum())}/{n}, ATE {ates[b] * 100:.4f} cm, keyframes on {kf_frames[b]}")
+        step_t = ms_step[1:]
+        chain_n = sum(r["chain"] for r in rows)
+        total_s = sum(r["ms"] for r in rows[1:]) / 1e3
+        total_e2e_s = total_s + sum(ms_build[1:]) / 1e3
+        log(f"B3 launches per batched step: {b3_step}")
+        log(f"median {statistics.median(step_t):.3f} ms per batched step ({B} sequences), median "
+            f"{statistics.median(ms_build[1:]):.3f} ms building the {B} frames; {chain_n} batched chains, median "
+            f"{statistics.median(ms_chain):.3f} ms per chain; aggregate {(n - 1) * B / total_s:.2f} frames/s over "
+            f"frames 1-{n - 1} (step + chain, as the example counts), {(n - 1) * B / total_e2e_s:.2f} frames/s with "
+            f"the frame builds")
+        log(f"launches during the run: {launches}")
+        require(tracked.all(), "a sequence lost a frame")
+        require(max(ates) <= 0.02, f"ATE {max(ates):.4f} m above 2 cm")
+        require(all(c == 0 for c in b3_step[:1]) and all(c == 2 for c in b3_step[1:]),
+                "B3 not launched twice per batched tracked step")
+        require(launches["fast_blur_stack"] == B * n and launches["gather_patches"] == B * n,
+                "B1/B2 not launched once per sequence per frame")
+
+        # one batched step and one solo step from the same state, profiled
+        st, bat, kn = prof_in
+        _, wall_b, launch_b, copy_b, busy_b, _ = _profiled(lambda: bt.step(st, bat, kn))
+        _, wall_s, launch_s, copy_s, busy_s, _ = _profiled(lambda: tracker.step(unstack(st, 0), unstack(bat, 0), kn))
+        log(f"frame {BATCH_PROFILE_FRAME} under torch.profiler: batched step {launch_b} launches, {copy_b} copies, "
+            f"{busy_b:.3f} ms device-busy in {wall_b:.3f} ms; one solo step {launch_s} launches, {copy_s} copies, "
+            f"{busy_s:.3f} ms device-busy in {wall_s:.3f} ms; launches ratio {launch_b / launch_s:.3f}")
+
+        # the step alone: the first frames of the 4 sequences batched
+        # without the mapper, against each sequence stepped alone
+        bs, kn, bouts = bt.init_state(), False, []
+        for i in range(BATCH_SOLO_FRAMES):
+            bs, bo = bt.step(bs, stack([builder(g, d) for g, d, _ in inputs[i]]), initialised=kn)
+            tel = bo.telemetry.cpu().numpy()
+            kn = _known_status(tel[:, T.TEL_STATUS])
+            bouts.append((tel, bo.Tcw.cpu().numpy()))
+        flags = [T.TEL_TRACKED, T.TEL_NEW_KF, T.TEL_STATUS, T.TEL_KF_ID, T.TEL_REF_KF]
+
+        def solo_run(b, with_mapper, n=BATCH_SOLO_FRAMES, times=None):
+            """Sequence b alone: its outputs per frame; with `times` the
+            ms of each frame's build and of its step + chain appended."""
+            s, kn_b, outs = tracker.init_state(), False, []
+            for i in range(n):
+                g, d, _ = inputs[i][b]
+                t0 = time.perf_counter()
+                f = builder(g, d)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s, o = tracker.step(s, f, initialised=kn_b)
+                if with_mapper and bool(o.new_kf):
+                    s = s._replace(m=mapper.process(s.m, o.kf_id))
+                tel = o.telemetry.cpu().numpy()
+                if times is not None:
+                    times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+                kn_b = int(tel[T.TEL_STATUS]) != T.ST_UNINIT
+                outs.append((tel, o.Tcw.cpu().numpy()))
+            return outs
+
+        # sequence 0 alone over the whole run, timed as the batched loop is
+        solo_t = []
+        solo_run(0, True, n, solo_t)
+        solo_s = sum(t[1] for t in solo_t[1:]) / 1e3
+        solo_e2e_s = solo_s + sum(t[0] for t in solo_t[1:]) / 1e3
+        log(f"sequence 0 alone, {n} frames with the mapper: {(n - 1) / solo_s:.2f} frames/s (step + chain), "
+            f"{(n - 1) / solo_e2e_s:.2f} frames/s with the frame builds; the batched run's aggregate is "
+            f"{(n - 1) * B / total_s / ((n - 1) / solo_s):.2f}x / {(n - 1) * B / total_e2e_s / ((n - 1) / solo_e2e_s):.2f}x "
+            f"that; median {statistics.median(t[1] for t in solo_t[1:] ):.3f} ms per solo frame (step and any chain)")
+
+        worst, closed = 0.0, []
+        for b in range(B):
+            for i, (tel, Tcw) in enumerate(solo_run(b, False)):
+                same = bool(np.array_equal(tel[flags], bouts[i][0][b, flags]))
+                dT = float(np.abs(Tcw - bouts[i][1][b]).max())
+                worst = max(worst, dT)
+                require(same and dT <= TOL_BATCH_POSE,
+                        f"seq {b} frame {i}: batched step and solo step disagree (flags equal {same}, |dTcw| {dT:.2e})")
+            # with the chains (closed loop): printed, not held: local BA's
+            # LM follows float32 rounding, which differs between a batched
+            # and a solo product, and the next frames track on its result
+            closed.append([(bool(np.array_equal(tel[flags], rows[i]["tel"][b, flags])),
+                            float(np.abs(Tcw - rows[i]["Tcw"][b]).max()))
+                           for i, (tel, Tcw) in enumerate(solo_run(b, True))])
+        log(f"first {BATCH_SOLO_FRAMES} frames, steps only, batched against each sequence alone: flags equal, "
+            f"largest |dTcw| {worst:.2e} (tol {TOL_BATCH_POSE}); with the chains (the main run's rows): flags "
+            f"equal on {sum(c[0] for r in closed for c in r)}/{B * BATCH_SOLO_FRAMES} frames, |dTcw| per sequence "
+            "and frame " + "; ".join(" ".join(f"{c[1]:.1e}" for c in r) for r in closed))
+
+        # the chain alone. The run's last batched chain replayed batched:
+        # bit for bit the run's own (no float atomics). The first chain (one
+        # keyframe per sequence) row by row against LocalMapper.process on
+        # that sequence's pre-chain map on the card: bit for bit. The last
+        # chain the same way, printed beside the card's solo chain against
+        # the CPU path on the same map: once local BA moves a camera, its
+        # LM follows float32 rounding, which a batched and a solo product or
+        # solve round differently, as the card and the CPU do.
+        pre_m, k, do, post_run = last_chain
+        post = _strict(torch, bm.process, pre_m, k, do)
+        apart = _differing(post, post_run)
+        require(not apart, f"the replayed batched chain differs from the run's own in {apart}")
+        numpy_map = lambda m: m._replace(**{f: getattr(m, f).cpu().numpy() for f in m._fields})  # noqa: E731
+
+        def diff(got, want):
+            differ = {f: int(np.sum(getattr(got, f) != getattr(want, f))) for f in CHAIN_EXACT
+                      if not np.array_equal(getattr(got, f), getattr(want, f))}
+            dp = np.linalg.norm(got.pt_pos - want.pt_pos, axis=1)[want.pt_valid & got.pt_valid]
+            return (f"entries differing {differ or 'none'}, |dTcw| "
+                    f"{float(np.abs(got.kf_pose - want.kf_pose).max()):.2e}, point positions median "
+                    f"{np.median(dp):.2e} m, 99th percentile {np.percentile(dp, 99):.2e} m")
+
+        for label, (pre_c, k_c, do_c, post_c) in (("first", first_chain), ("last", last_chain)):
+            yardstick = label == "last"
+            for b in range(B):
+                row = unstack(post_c, b)
+                if not bool(do_c[b]):
+                    require(not _differing(row, unstack(pre_c, b)), f"seq {b}: a masked chain changed the map")
+                    continue
+                solo = mapper.process(unstack(pre_c, b), k_c[b])
+                msg = f"{label} chain, seq {b}, keyframe {int(k_c[b])}: batched row vs solo chain on the card: "
+                if label == "first":
+                    apart = _differing(row, solo)
+                    log(msg + f"fields not bit for bit equal {apart or 'none'}")
+                    require(not apart, f"seq {b}: the first batched chain differs from the solo chain")
+                    continue
+                msg += diff(numpy_map(row), numpy_map(solo))
+                if yardstick:  # one CPU chain at these capacities takes seconds
+                    yardstick = False
+                    cpu_mapper = LocalMapper(T.Tracker(settings, device="cpu", **BATCH_CAPS))
+                    msg += "; solo chain on the card vs the CPU path: " + diff(
+                        numpy_map(solo), numpy_map(cpu_mapper.process(_to(unstack(pre_c, b), "cpu"), int(k_c[b]))))
+                log(msg)
+    return launches
+
+
 def run_loop():
     """The loop phase (see the module docstring). -> kernel launches of the
     TUM2 loop-on run."""
@@ -1279,6 +1610,29 @@ def main() -> int:
         require(bool(torch.isfinite(Tk2).all()) and e2 <= TOL_B3_POSE and max(flips2) <= TOL_B3_FLIPS,
                 "B3 (P = 2) disagrees with its plain twin")
         err3 = max(err3, e2)
+        # under torch.func.vmap (parallel/batch.py): 4 sequences' P = 2
+        # problems, each sequence laid out as above, through the custom op's
+        # vmap rule: one launch of 8 problems
+        prs = [pose_problem_pair(np.random.default_rng(10 + b)) for b in range(4)]
+        ptsv = pose_mod.PointObs(*(torch.stack(f) for f in zip(*[
+            (T(q["xw"]), T(q["obs"]).expand(2, -1, -1), T(q["isig"]).expand(2, -1), T(q["stereo"]).expand(2, -1),
+             T(q["valid"])) for q in prs])))
+        solve_v = torch.func.vmap(lambda p: pose_mod.pose_optimization(T02, p, pr["K"], pr["bf"])[:2])
+        before = pose_mod.pose_lm.launches
+        Tkv, pkv = solve_v(ptsv)
+        n_v = pose_mod.pose_lm.launches - before
+        outs = [pose_mod.pose_optimization_plain(T02, pose_mod.PointObs(*(f[b] for f in ptsv)), pr["K"], pr["bf"])
+                for b in range(4)]
+        torch.cuda.synchronize()
+        ev = max(float((Tkv[b] - o[0]).abs().max()) for b, o in enumerate(outs))
+        flipsv = [int((pkv[b, i] != o[1][i]).sum()) for b, o in enumerate(outs) for i in range(2)]
+        ms3_v = cuda_ms(torch, lambda: solve_v(ptsv))
+        log(f"B3 under vmap, 4 sequences x P = 2: {n_v} launch(es), |dT| {ev:.3e} (tol {TOL_B3_POSE}), inlier "
+            f"flips {flipsv} (tol {TOL_B3_FLIPS} each), {ms3_v:.4f} ms for the 8 problems")
+        require(n_v == 1, f"B3's vmap rule made {n_v} launches for 8 problems, not 1")
+        require(bool(torch.isfinite(Tkv).all()) and ev <= TOL_B3_POSE and max(flipsv) <= TOL_B3_FLIPS,
+                "B3 under vmap disagrees with its plain twin")
+        err3 = max(err3, ev)
         ms3_p2 = cuda_ms(torch, lambda: pose_mod.pose_lm(T02, pts2, pr["K"], pr["bf"]))
         ms3_p1 = cuda_ms(torch, lambda: pose_mod.pose_lm(T0, pts1, pr["K"], pr["bf"]))
         log(f"B3 pose_lm: {ms3:.4f} ms (lines valid), {times3[False][0]:.4f} ms (no valid line), "
@@ -1339,10 +1693,14 @@ def main() -> int:
     require(lines_settings.use_lines and lines_settings.line_backend == "device", "TUM3 should run device lines")
     lseq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=lines_settings)
     run_slice("slice-lines", lines_settings, lseq, [lseq.frame(i) for i in range(N_FRAMES)], lines=True)
-    for name, n in run_system(lines_settings).items():
-        kernels[name]["launches"] = n
+    log(f"kernel launches during the system run: {run_system(lines_settings)}")
     run_mapping("mapping TUM1", settings, depth_range=MAP_DEPTH_RANGE)
     run_mapping("mapping TUM3", lines_settings, use_loop_closing=False)
+    run_low_texture()
+    # the kernels line counts the launches of this slice's path, the batched
+    # one (B4 from the fast phase: it is not on the step)
+    for name, n in run_batched().items():
+        kernels[name]["launches"] = n
     pipe_launches = run_pipelined(lines_settings)
     log(f"kernel launches during the first pipelined run: {pipe_launches}")
     loop_launches = run_loop()

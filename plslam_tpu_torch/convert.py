@@ -7,7 +7,9 @@ of tensors on `device`, field by field. bf16 arrays (the reference's +-1
 descriptor bits) become float32; everything else keeps its dtype. The
 relocalizer's BoW database, a loop closer's detection and closure state
 and a `System`'s host-side bookkeeping cross over as numpy arrays and
-lists.
+lists. A batched state (the reference's `BatchedTracker`, a leading
+sequence axis on every leaf) crosses the same way, to the stacked state
+of parallel/batch.py.
 """
 
 from __future__ import annotations
@@ -54,6 +56,16 @@ def track_state_from_numpy(d, device="cuda") -> TrackState:
         "m": lambda x: map_state_from_numpy(x, dev),
         "last": lambda x: _convert(LastFrame, x, dev),
     })
+
+
+def batched_track_state_from_numpy(d, batch: int, device="cuda") -> TrackState:
+    """A reference `BatchedTracker` state (numpy leaves, each with a leading
+    axis of `batch` sequences) -> the port's stacked TrackState."""
+    ts = track_state_from_numpy(d, device)
+    leaves = [x for f in ts for x in (f if isinstance(f, tuple) else (f,))]
+    if any(x.ndim == 0 or x.shape[0] != batch for x in leaves):
+        raise ValueError(f"every field of a batched state needs a leading axis of {batch}")
+    return ts
 
 
 def frame_from_numpy(d, device="cuda") -> FrameData:

@@ -203,8 +203,8 @@ def _draw_line(img, p0, p1, value, thickness):
         _fill_circle(img, (q[0] + _HALF) >> _XY_SHIFT, (q[1] + _HALF) >> _XY_SHIFT, (half + _HALF) >> _XY_SHIFT, value)
 
 
-def _texture(rng, size=2048, n_lines=40):
-    tex = _gaussian_blur(rng.uniform(0, 255, (size, size)).astype(np.float32), 2.0)
+def _texture(rng, size=2048, low_texture=False, n_lines=40):
+    tex = _gaussian_blur(rng.uniform(0, 255, (size, size)).astype(np.float32), 6.0 if low_texture else 2.0)
     tex = (tex - tex.min()) / (tex.max() - tex.min() + 1e-9)
     tex = (40 + tex * 170).astype(np.float32)
     # straight dark/bright stripes
@@ -246,13 +246,16 @@ class SyntheticSequence:
         height: int = 480,
         width: int = 640,
         seed: int = 0,
+        low_texture: bool = False,
         motion_scale: float = 1.0,
         fps: float = 30.0,
-        settings: Settings | None = None,
         trajectory: str = "xyz",
         depth_noise: float = 0.0,
+        settings: Settings | None = None,
     ):
-        """settings: render through this calibration (intrinsics and lens
+        """low_texture: blur the wall texture at sigma 6 instead of 2, so
+        that lines carry the tracking (BASELINE.json config 3's low-texture
+        scene). settings: render through this calibration (intrinsics and lens
         distortion), so the pipeline's undistortion inverts the lens.
         trajectory: "xyz" (fr1_xyz-style), "loop" (a circle facing the
         wall) or "rect" (a corridor circuit). depth_noise: sigma of a
@@ -275,7 +278,7 @@ class SyntheticSequence:
             k1=0, k2=0, p1=0, p2=0, k3=0, width=width, height=height,
             bf=40.0, depth_map_factor=1.0, fps=fps,
         )
-        self.tex = _texture(rng)
+        self.tex = _texture(rng, low_texture=low_texture)
         self.tex_scale = 220.0  # pixels per world metre on the planes
         self.z_bg = 3.4
         # foreground square patches (x, y, half-size, z, texture offset x,

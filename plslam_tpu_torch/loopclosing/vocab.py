@@ -57,9 +57,9 @@ class Vocabulary:
     def bow(self, desc_pm1, valid):
         """-> L1-normalised BoW vector f32[W]."""
         wid = self.quantize(desc_pm1, valid)
-        hist = torch.zeros(self.n_words + 1, dtype=torch.float32, device=wid.device)
-        hist.index_add_(0, torch.where(wid >= 0, wid, self.n_words).long(),
-                        torch.ones(wid.shape[0], dtype=torch.float32, device=wid.device))
+        hist = torch.zeros(self.n_words + 1, dtype=torch.float32, device=wid.device).index_add(
+            0, torch.where(wid >= 0, wid, self.n_words).long(),
+            torch.ones(wid.shape[0], dtype=torch.float32, device=wid.device))
         hist = hist[: self.n_words]
         return hist / torch.clamp(torch.sum(hist), min=1.0)
 

@@ -7,7 +7,9 @@ the candidates' best distances (lineDescriptorMAD), resolved mutual-nearest.
 
 `jnp.nanmedian` averages the two middle values of an even count;
 `torch.nanquantile(x, 0.5)` interpolates the same way (`torch.nanmedian`
-would return the lower one).
+would return the lower one). `nanmedian` below is that quantile written
+with ops that have a `torch.func.vmap` batching rule (nanquantile has none
+and would run once per sequence in parallel/batch.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,19 @@ import numpy as np
 import torch
 
 from plslam_tpu_torch.matching.points import BIG, best_two, hamming_matrix
+
+
+def nanmedian(x):
+    """torch.nanquantile(x, 0.5) over all elements, bit for bit: ATen's
+    linear interpolation between the sorted non-NaN values (NaN sorts
+    last) at rank 0.5 (n - 1); NaN when every value is NaN."""
+    s = torch.sort(x.reshape(-1)).values
+    n = torch.sum(~torch.isnan(s))
+    rank = torch.clamp((n - 1).to(x.dtype) * 0.5, min=0)
+    below = rank.to(torch.long)
+    weight = rank - below.to(x.dtype)
+    above = torch.ceil(rank).to(torch.long)
+    return torch.lerp(s.gather(0, below.reshape(1)), s.gather(0, above.reshape(1)), weight)[0]
 
 
 def search_lines_by_projection(
@@ -49,8 +64,8 @@ def search_lines_by_projection(
     ok = best < th_dist
     if use_mad:
         cand = torch.where(ok, best, torch.nan)
-        med = torch.nanquantile(cand, 0.5)
-        mad = 1.4826 * torch.nanquantile(torch.abs(cand - med), 0.5)
+        med = nanmedian(cand)
+        mad = 1.4826 * nanmedian(torch.abs(cand - med))
         gate = torch.where(torch.isfinite(med), med + 2.0 * mad + 1.0, th_dist)
         ok &= best <= torch.clamp(gate, max=th_dist)
     best_ml_of_ln = torch.argmin(Dm, 1)

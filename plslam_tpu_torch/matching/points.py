@@ -44,8 +44,7 @@ def rotation_consistency_mask(rot_diff, match_valid, n_bins=C.HISTO_LENGTH, keep
     two_pi = torch.full((), 2.0 * math.pi, dtype=torch.float32, device=rot_diff.device)
     frac = torch.remainder(rot_diff, two_pi) / two_pi
     bins = torch.clamp((frac * n_bins).to(torch.int32), 0, n_bins - 1).long()
-    hist = torch.zeros(n_bins, dtype=torch.int32, device=rot_diff.device)
-    hist.index_add_(0, bins, match_valid.to(torch.int32))
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=rot_diff.device).index_add(0, bins, match_valid.to(torch.int32))
     counts, top_bins = topk_lower_index_first(hist, keep)
     top_bins = torch.where(counts.to(torch.float32) >= 0.1 * counts[0].to(torch.float32), top_bins, -1)
     in_top = (bins[:, None] == top_bins[None, :]).any(-1)

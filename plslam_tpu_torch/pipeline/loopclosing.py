@@ -169,21 +169,22 @@ class LoopCloser(Relocalizer):
         KeyFrameDatabase::DetectLoopCandidates) for keyframe k (a Python
         int). -> (any enough-consistent candidate, the candidate mask
         bool[K], scores f32[K], the new groups bool[G, K], their
-        consistency i32[G]). Nothing is read back."""
+        consistency i32[G]). Nothing is read back; k may be a 0-dim index
+        tensor (parallel/batch.py runs the gate under vmap)."""
         G = C.LOOP_MAX_GROUPS
         K = self.tracker.max_kf
         dev = kf_bow.device
         ar = torch.arange(K, device=dev)
         cov = covisibility(m)
-        bow = kf_bow[k]
+        bow = take_row(kf_bow, k)
         kf_valid = m.kf_valid
         scores = self.tfidf_scores_device(kf_bow, bow, kf_valid)
-        neighbours = (cov[k] >= C.COVIS_TH) & kf_valid
+        neighbours = (take_row(cov, k) >= C.COVIS_TH) & kf_valid
         min_score = torch.where(torch.any(neighbours), torch.min(torch.where(neighbours, scores, torch.inf)),
                                 C.LOOP_MIN_SCORE_FALLBACK)
         # culled keyframes keep stale BoW rows: never candidates
         fid = m.kf_frame_id
-        cand = kf_valid & ~neighbours & (ar != k) & (fid < fid[k] - C.LOOP_TEMPORAL_GATE_FRAMES)
+        cand = kf_valid & ~neighbours & (ar != k) & (fid < take_row(fid, k) - C.LOOP_TEMPORAL_GATE_FRAMES)
         # shared-word gate: more than 0.8 * maxCommonWords
         common = torch.where(cand, ((kf_bow > 0).to(torch.float32) @ (bow > 0).to(torch.float32)), 0.0)
         cmax = torch.max(common)
@@ -195,7 +196,7 @@ class LoopCloser(Relocalizer):
         n10 = min(10, K)
         topv, topi = topk_lower_index_first(cov, n10)  # [K, n10]
         mem_ok = (topv >= C.COVIS_TH) & cand[topi]
-        mem = torch.zeros((K, K), dtype=torch.bool, device=dev).scatter_(1, topi, mem_ok)  # distinct per row
+        mem = torch.zeros((K, K), dtype=torch.bool, device=dev).scatter(1, topi, mem_ok)  # distinct per row
         mem = mem | torch.eye(K, dtype=torch.bool, device=dev)
         acc = torch.where(cand, mem.to(torch.float32) @ scores, -torch.inf)
         kept = cand & (acc >= 0.75 * torch.max(acc))

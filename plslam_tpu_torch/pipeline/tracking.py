@@ -151,13 +151,10 @@ def set_drop(dst, idx, val):
     n = dst.shape[0]
     tgt = _drop_target(idx, n)
     pos = torch.arange(tgt.shape[0], device=dst.device)
-    last = torch.full((n + 1,), -1, dtype=torch.long, device=dst.device)
-    last.scatter_reduce_(0, tgt, pos, reduce="amax")
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=dst.device).scatter_reduce(0, tgt, pos, reduce="amax")
     tgt = torch.where(last[tgt] == pos, tgt, n)
     val = _as_rows(val, dst, tgt.shape[0])
-    out = torch.cat([dst, dst[:1]], 0)
-    out[tgt] = val
-    return out[:n]
+    return torch.cat([dst, dst[:1]], 0).index_put((tgt,), val)[:n]
 
 
 def add_drop(dst, idx, val):
@@ -165,17 +162,13 @@ def add_drop(dst, idx, val):
     n = dst.shape[0]
     tgt = _drop_target(idx, n)
     val = _as_rows(val, dst, tgt.shape[0])
-    out = torch.cat([dst, torch.zeros_like(dst[:1])], 0)
-    out.index_put_((tgt,), val, accumulate=True)
-    return out[:n]
+    return torch.cat([dst, torch.zeros_like(dst[:1])], 0).index_put((tgt,), val, accumulate=True)[:n]
 
 
 def set_row(a, k, row, do):
     """a.at[k].set(where(do, row, a[k])) for a 0-dim index tensor k."""
     kk = k.reshape(1).long()
-    out = a.clone()
-    out.index_copy_(0, kk, torch.where(do, row, a.index_select(0, kk)[0])[None])
-    return out
+    return a.index_copy(0, kk, torch.where(do, row, a.index_select(0, kk)[0])[None])
 
 
 def free_slots(valid, want):
@@ -280,8 +273,8 @@ class Tracker:
         cand = frame.valid & (frame.depth > 0) & (lm_of_kp < 0)
         close = cand & (frame.depth < self.depth_th)
         order = torch.argsort(torch.where(cand, frame.depth, torch.inf), stable=True)
-        rank = torch.empty(N, dtype=torch.int32, device=self.device)
-        rank[order] = torch.arange(N, dtype=torch.int32, device=self.device)
+        rank = torch.zeros(N, dtype=torch.int32, device=self.device).scatter(
+            0, order, torch.arange(N, dtype=torch.int32, device=self.device))
         promote = cand & (close | (rank < C.NEW_KF_MAX_CLOSE_POINTS)) & do
         new_id, promote = free_slots(m.pt_valid, promote)
         scatter_id = torch.where(promote, new_id, P)
@@ -414,8 +407,8 @@ class Tracker:
         # first ws_cap member ids in ascending order (jnp.nonzero(size=...))
         pos = torch.cumsum(member.to(torch.int32), 0) - 1
         tgt = torch.where(member & (pos < self.ws_cap), pos, self.ws_cap).long()
-        ws = torch.full((self.ws_cap + 1,), -1, dtype=torch.int32, device=self.device)
-        ws.scatter_(0, tgt, torch.arange(P, dtype=torch.int32, device=self.device))
+        ws = torch.full((self.ws_cap + 1,), -1, dtype=torch.int32, device=self.device).scatter(
+            0, tgt, torch.arange(P, dtype=torch.int32, device=self.device))
         return ws[: self.ws_cap]
 
     def refresh_local_set(self, ts: TrackState) -> TrackState:

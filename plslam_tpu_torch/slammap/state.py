@@ -143,10 +143,8 @@ def observation_matrix(m: MapState):
     K, F = m.kf_lm_idx.shape
     P = m.pt_valid.shape[0]
     ok = (m.kf_lm_idx >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
-    obs = torch.zeros((K, P + 1), dtype=torch.bool, device=ok.device)
     cols = torch.where(ok, m.kf_lm_idx, P).long()  # column P collects the drops
-    obs.scatter_(1, cols, True)
-    return obs[:, :P]
+    return torch.zeros((K, P + 1), dtype=torch.bool, device=ok.device).scatter(1, cols, True)[:, :P]
 
 
 def covisibility(m: MapState, obs=None):
@@ -162,7 +160,7 @@ def _incidence_counts(ids, ok, P, w=None, reduce_rows=False):
     """Observation counts from per-row id lists: i32[K, P] with
     out[k, p] = sum_f w[k, f] * (ids[k, f] == p) over the rows where `ok`,
     or with reduce_rows=True the i32[P] column sums. One integer
-    `index_add_` with a drop column where the reference contracts two
+    `index_add` with a drop column where the reference contracts two
     one-hot operands (a TPU workaround for slow scatters); the counts are
     the same integers."""
     K, F = ids.shape
@@ -170,11 +168,9 @@ def _incidence_counts(ids, ok, P, w=None, reduce_rows=False):
     col = torch.where(ok, ids, P).long()
     if reduce_rows:
         cnt = torch.zeros(P + 1, dtype=torch.int32, device=ids.device)
-        cnt.index_add_(0, col.reshape(-1), wgt.reshape(-1))
-        return cnt[:P]
+        return cnt.index_add(0, col.reshape(-1), wgt.reshape(-1))[:P]
     cnt = torch.zeros((K, P + 1), dtype=torch.int32, device=ids.device)
-    cnt.scatter_add_(1, col, wgt)
-    return cnt[:, :P]
+    return cnt.scatter_add(1, col, wgt)[:, :P]
 
 
 def clear_dead_references(m: MapState) -> MapState:

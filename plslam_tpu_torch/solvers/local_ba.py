@@ -80,7 +80,7 @@ def _segments(drop, n):
     n segments' [start, end) in that order."""
     drop = drop.reshape(-1)
     order = torch.argsort(drop, stable=True)
-    cnt = torch.zeros(n + 1, dtype=torch.long, device=drop.device).scatter_add_(0, drop, torch.ones_like(drop))[:n]
+    cnt = torch.zeros(n + 1, dtype=torch.long, device=drop.device).scatter_add(0, drop, torch.ones_like(drop))[:n]
     end = torch.cumsum(cnt, 0)
     return order, end - cnt, end
 
@@ -430,9 +430,9 @@ class LocalBA:
             M4 = _segsum(T_cat.reshape(-1, 18), plan_rows).reshape(W, Pt + 1, 6, 3)[:, :Pt]
             M2 = M4.permute(0, 2, 1, 3).reshape(W * 6, Pt * 3)
             S = -mm(M2, M2.t())  # full float32 (TF32 is off package-wide)
-            diag = torch.arange(W, device=dev)
-            Hd = torch.zeros((W, 6, W, 6), dtype=S.dtype, device=dev)
-            Hd[diag, :, diag, :] = Hcc + lam * torch.eye(6, device=dev)
+            # the block diagonal [W, 6, W, 6] of the damped camera blocks
+            diag = torch.eye(W, dtype=torch.bool, device=dev)[:, None, :, None]
+            Hd = torch.where(diag, (Hcc + lam * torch.eye(6, device=dev))[:, :, None, :], 0.0)
             S = S + Hd.reshape(W * 6, W * 6)
             dc = torch.linalg.solve_ex(S + 1e-8 * torch.eye(W * 6, device=dev), rhs.reshape(-1)).result.reshape(W, 6)
             # back-substitute the landmarks: dp = G (bp - sum_e B_e^T dc_w)

@@ -9,7 +9,9 @@ lam * nu). `pose_lm` is kernel B3 (csrc/pose_lm.cu), which replaces
 `_kernel` in plslam_tpu/solvers/pose_pallas.py:67 (launched by
 `_pose_pallas` / `pose_optimization_pallas`, dispatched at
 plslam_tpu/solvers/pose.py:168-179). `pose_optimization` dispatches on the
-device of the observations.
+device of the observations, through the custom op `plslam::pose_solve`
+(a CUDA kernel: B3; a CPU kernel: the plain twin; a vmap rule: a batch of
+sequences' problems on the problem axis, parallel/batch.py).
 
 Every entry also takes P independent problems stacked on a leading axis
 (Tcw0 f32[P, 4, 4], PointObs fields [P, N, ...], LineObs fields [P, L, ...]);
@@ -336,13 +338,81 @@ pose_lm.line_launches = 0
 pose_lm.line_inliers = 0
 
 
+def _K_host(fx, fy, cx, cy):
+    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)
+
+
+def _unpack(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d, inv_sigma2_l, valid_l):
+    pts = PointObs(xw, obs, inv_sigma2, is_stereo, valid)
+    lines = None if sw is None else LineObs(sw, ew, line2d, inv_sigma2_l, valid_l)
+    return Tcw0, pts, lines
+
+
+def _no_lines(Tcw, pin, lin, P):
+    return Tcw, pin, lin if lin is not None else torch.zeros((P, 0), dtype=torch.bool, device=Tcw.device)
+
+
+@torch.library.custom_op("plslam::pose_solve", mutates_args=(), device_types="cpu")
+def _pose_solve(Tcw0: torch.Tensor, xw: torch.Tensor, obs: torch.Tensor, inv_sigma2: torch.Tensor,
+                is_stereo: torch.Tensor, valid: torch.Tensor, sw: torch.Tensor | None, ew: torch.Tensor | None,
+                line2d: torch.Tensor | None, inv_sigma2_l: torch.Tensor | None, valid_l: torch.Tensor | None,
+                fx: float, fy: float, cx: float, cy: float, bf: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """P stacked problems (leading axis) -> (Tcw [P,4,4], pt_inlier [P,N],
+    line_inlier [P,L], [P,0] without lines). CPU: the plain twin."""
+    Tcw0, pts, lines = _unpack(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d, inv_sigma2_l, valid_l)
+    return _no_lines(*pose_optimization_plain(Tcw0, pts, _K_host(fx, fy, cx, cy), bf, lines), Tcw0.shape[0])
+
+
+@_pose_solve.register_kernel("cuda")
+def _pose_solve_cuda(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d, inv_sigma2_l, valid_l,
+                     fx, fy, cx, cy, bf):
+    """CUDA: kernel B3, one launch; raises on a failed build or launch."""
+    Tcw0, pts, lines = _unpack(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d, inv_sigma2_l, valid_l)
+    return _no_lines(*pose_lm(Tcw0, pts, _K_host(fx, fy, cx, cy), bf, lines), Tcw0.shape[0])
+
+
+def _pose_solve_vmap(info, in_dims, *args):
+    """torch.func.vmap rule: the B sequences' P problems each become B*P
+    problems on the problem axis, solved in launches of at most
+    MAX_PROBLEMS. A field shared along P (stride 0, `_staged`) is not
+    shared along B, so the flattening materialises it."""
+    B = info.batch_size
+    tensors, scalars = args[:11], args[11:]
+    P = (args[0] if in_dims[0] is None else args[0].movedim(in_dims[0], 0)[0]).shape[0]
+
+    def flat(t, d):
+        if t is None:
+            return None
+        t = t.expand((B,) + t.shape) if d is None else t.movedim(d, 0)
+        return t.reshape((B * P,) + t.shape[2:])
+
+    flat_args = [flat(t, d) for t, d in zip(tensors, in_dims[:11])]
+    outs = [_pose_solve(*(None if t is None else t[s:s + MAX_PROBLEMS] for t in flat_args), *scalars)
+            for s in range(0, B * P, MAX_PROBLEMS)]
+    res = tuple(torch.cat([o[i] for o in outs]) if len(outs) > 1 else outs[0][i] for i in range(3))
+    return tuple(r.reshape((B, P) + r.shape[1:]) for r in res), (0, 0, 0)
+
+
+torch.library.register_vmap("plslam::pose_solve", _pose_solve_vmap)
+
+
 def pose_optimization(Tcw0, pts: PointObs, K, bf, lines: LineObs | None = None):
     """-> (Tcw f32[4,4], pt_inlier bool[N], line_inlier bool[L] | None), or
     the same with a leading problem axis for stacked problems.
 
-    B3 on CUDA tensors, the plain twin on CPU tensors. K is the host-side
-    3x3 intrinsics (numpy or CPU tensor): the kernel takes them as
-    launch arguments."""
-    if pts.xw.device.type == "cpu":
-        return pose_optimization_plain(Tcw0, pts, K, bf, lines)
-    return pose_lm(Tcw0, pts, K, bf, lines)
+    B3 on CUDA tensors, the plain twin on CPU tensors, through the custom
+    op `plslam::pose_solve`, whose vmap rule solves a batch of sequences'
+    problems together (parallel/batch.py). K is the host-side 3x3
+    intrinsics (numpy or CPU tensor): the kernel takes them as launch
+    arguments."""
+    batched = Tcw0.ndim == 3
+    if not batched:
+        Tcw0, pts = Tcw0[None], PointObs(*(f[None] for f in pts))
+        lines = None if lines is None else LineObs(*(f[None] for f in lines))
+    line_args = (None,) * 5 if lines is None else tuple(lines)
+    Tcw, pin, lin = _pose_solve(Tcw0, *pts, *line_args, *_intrinsics(K), float(bf))
+    lin = None if lines is None else lin
+    if not batched:
+        return Tcw[0], pin[0], None if lin is None else lin[0]
+    return Tcw, pin, lin

@@ -197,6 +197,27 @@ def test_b3_stacked_problems(dev, P):
         assert torch.equal(Tk[2], T0[2]) and not pk[2].any() and not lk[2].any()
 
 
+@pytest.mark.parametrize("n_seq", [4, 5])
+def test_b3_under_vmap(dev, n_seq):
+    """B3 through the custom op's vmap rule (parallel/batch.py): n_seq
+    sequences' P = 2 problems in the tracker's layout, solved in launches
+    of at most 8 problems, against the plain twin per sequence."""
+    prs = [pose_problem_pair(np.random.default_rng(20 + b)) for b in range(n_seq)]
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    T0 = torch.eye(4, device=dev).expand(2, 4, 4)
+    K, bf = prs[0]["K"], prs[0]["bf"]
+    per_seq = [pose.PointObs(T(q["xw"]), T(q["obs"]).expand(2, -1, -1), T(q["isig"]).expand(2, -1),
+                             T(q["stereo"]).expand(2, -1), T(q["valid"])) for q in prs]
+    stacked = pose.PointObs(*(torch.stack(f) for f in zip(*per_seq)))
+    n0 = pose.pose_lm.launches
+    Tk, pk = torch.func.vmap(lambda p: pose.pose_optimization(T0, p, K, bf)[:2])(stacked)
+    assert pose.pose_lm.launches == n0 + -(-2 * n_seq // pose.MAX_PROBLEMS)
+    for b, pts in enumerate(per_seq):
+        Tp, pp, _ = pose.pose_optimization_plain(T0, pts, K, bf)
+        assert float((Tk[b] - Tp).abs().max()) <= 1e-4
+        assert max(int((pk[b, i] != pp[i]).sum()) for i in range(2)) <= 2
+
+
 def test_b3_wrapper_rejects_what_the_bulk_copy_cannot_take(dev):
     pts, lines, K, bf = _stacked_problems(dev, 1)
     T0 = torch.eye(4, device=dev)[None]

@@ -22,12 +22,15 @@ FRAMES = (0, 10, 29)
 TOL = 1e-3
 
 
-@pytest.fixture(scope="module", params=["640x480", "320x240"])
+@pytest.fixture(scope="module", params=["640x480", "320x240", "320x240-low-texture"])
 def pair(request):
     """(port, reference) sequences, seed 0: 640x480 through the shipped TUM1
     calibration (the frames the smoke runs track, lens distortion
-    included), 320x240 through the default pinhole camera."""
+    included), 320x240 through the default pinhole camera, and the same
+    with the low-texture wall (sigma-6 blur, BASELINE.json config 3)."""
     kw = dict(n_frames=30, seed=0)
+    if request.param == "320x240-low-texture":
+        kw["low_texture"] = True
     if request.param == "640x480":
         return (synthetic.SyntheticSequence(settings=load_settings(CFG), **kw),
                 jsynthetic.SyntheticSequence(settings=jload_settings(CFG), **kw))

@@ -259,3 +259,27 @@ def test_options_outside_the_slice_raise(run, tmp_path):
             System(s, use_local_mapping=False, use_loop_closing=False)
     assert slam.telemetry_reads == len(run["inputs"])
     assert slam.n_keyframes >= 1 and slam.n_map_points > 100
+
+
+def test_config3_low_texture(tmp_path):
+    """BASELINE.json config 3 on the port alone: System with every default (lines
+    on, device LSD, mapper and loop closing on) on the reference test's
+    low-texture fixture (tests/test_lines.py:15-16: 12 frames, 320x240,
+    seed 5, max_pts 4096, max_kf 32), held to that test's four assertions
+    (tests/test_lines.py:188-207)."""
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.io.trajectory import load_trajectory_tum
+
+    seq = SyntheticSequence(n_frames=12, height=240, width=320, seed=5, low_texture=True)
+    slam = System(seq.settings, max_pts=4096, max_kf=32, device="cpu")
+    ok = 0
+    for i in range(seq.n_frames):
+        g, d, t = seq.frame(i)
+        ok += slam.track_rgbd(g, d, t) is not None
+    assert ok == seq.n_frames
+    m = slam.state.m
+    assert int(m.ln_valid.sum()) > 10  # map lines created
+    assert int((m.ln_nobs > 2).sum()) > 5  # lines re-observed
+    slam.save_trajectory_tum(tmp_path / "traj.txt")
+    rmse, _ = ate_rmse(load_trajectory_tum(tmp_path / "traj.txt"), seq.gt_trajectory())
+    assert rmse < 0.02, f"ATE {rmse * 100:.2f} cm"
