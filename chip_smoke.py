@@ -58,7 +58,31 @@ Phases, each timed and printed:
               more than 10 map lines, more than 5 observed more than twice,
               ATE < 2 cm; every chain under CUDA's sync debug mode "error";
               ms per call and per chain.
- 10. batched  BASELINE.json config 5: BatchedTracker + BatchedMapper
+ 10. host_lines  System(configs/TUM3.yaml with line_backend: "host") with every
+              default on 30 frames of SyntheticSequence(seed=0), 640x480, at
+              pipeline_depth=0 and 4: the host LSD (native/lsd.cpp, built
+              by g++ into .torch_build/) on each frame, its endpoints
+              uploaded with the images; every frame tracked, ATE <= 2 cm,
+              map lines, the pipelined run's flags equal to the
+              synchronous run's, B1-B3 launched, every dispatch and chain
+              under CUDA's sync debug mode "error"; the first frames' line
+              fields in the System against the port's CPU path (raw
+              endpoints equal, geometry to 1e-3, LBD bits equal on >=
+              99.5%); host LSD ms per frame, ms per call and per chain.
+              Then dump_debug_images on the synchronous System: frame.png
+              and map.png decode (io/png.py) to draw_frame / draw_map of
+              its state.
+ 11. vocab    the port's vocabulary harvest (loopclosing/train_vocab.py) on
+              the card at the reference's defaults (16 scenes x 8 frames,
+              320x240, ORB with B1 and B2), then train_tree: the descriptor
+              count equal to the reference's corpus (46,385, committed in
+              tests/data/vocab_corpus_ref.npz; the shipped codebook is its
+              tree), the descriptor bits equal on >= 99.5% (ORB's
+              documented near-tie flips); the descriptors and words that
+              differ from the reference's printed, and the first frame
+              that differs held against the port's CPU path (keypoints
+              equal, angles to 1e-3, bits on >= 99.5%).
+ 12. batched  BASELINE.json config 5: BatchedTracker + BatchedMapper
               (parallel/batch.py, torch.func.vmap) on 4 sequences (seeds 1,
               12, 23, 34; 640x480, 25 frames, max_pts 8192, max_kf 64, as
               examples/multi_sequence.py), frames built per sequence: every
@@ -78,7 +102,7 @@ Phases, each timed and printed:
               one batched step and one solo step under torch.profiler
               (launches, device-busy); ms per batched step and chain,
               aggregate frames/s.
- 11. pipelined  System(configs/TUM3.yaml, pipeline_depth=4) with every
+ 13. pipelined  System(configs/TUM3.yaml, pipeline_depth=4) with every
               default at full capacities (mapper and loop closing on) on the
               mapping phase's 30 frames, in turns with pipeline_depth=0 (0,
               4, 4, 0): every chunk dispatch, single dispatch and keyframe
@@ -97,7 +121,7 @@ Phases, each timed and printed:
               for bit equal), 5 frames in localization mode (the map
               unchanged), and the system phase's blackout fixture pipelined
               (OK after the flush).
- 12. loop     System(settings) with every default, loop closing on, full
+ 14. loop     System(settings) with every default, loop closing on, full
               capacities: (a) tests/test_loop_e2e.py's fixture,
               SyntheticSequence(190 frames, 320x240, seed 0, "loop", 10 fps,
               depth_noise 0.03) with loop closing on and off, held to the
@@ -164,6 +188,9 @@ BATCH_FRAMES = 25
 BATCH_CAPS = dict(max_pts=8192, max_kf=64)
 BATCH_SOLO_FRAMES = 5  # frames of each sequence also run alone
 BATCH_PROFILE_FRAME = 10
+# the host_lines phase
+HL_FRAMES = 30
+HL_CPU_FRAMES = 3  # frames whose line fields are held against the CPU path
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU clock ahead of each timed call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -188,6 +215,13 @@ TOL_B3_FLIPS = 2
 # B3 solves each problem in a block of its own either way; flags equal,
 # poses to 1e-4 m
 TOL_BATCH_POSE = 1e-4
+# Descriptor bits on the card against the CPU path (ORB and LBD): the
+# patches and gradients come from float32 sums in other orders, so a
+# compare that sits on a near-tie may flip (tests/test_torch_orb.py holds
+# the port to the reference at the same rule); undistorted keyline
+# endpoints and 2-D lines to 1e-3 px
+TOL_DESC_BITS = 0.995
+TOL_LINE_GEOM = 1e-3
 # A keyframe chain on the card against the CPU path from one pre-chain
 # state: every index, flag, counter and descriptor equal; local BA's plain
 # LM phase follows float32 rounding (cuBLAS and the CPU's BLAS sum the
@@ -1126,6 +1160,219 @@ def run_low_texture():
     return dict(ms_call=statistics.median(ms_call), ms_chain=statistics.median(chains))
 
 
+def _bits_equal(a, b):
+    return float((np.unpackbits(a, -1) == np.unpackbits(b, -1)).mean())
+
+
+def _host_lines_run(settings, frames, depth):
+    """System(settings, pipeline_depth=depth) with every default over
+    frames on the card, every dispatch and chain under sync debug "error"
+    -> dict: the System, its first frames' FrameData, ms per call, host
+    LSD ms per call, ms per chain, the B1-B3 launches."""
+    import torch
+
+    from plslam_tpu_torch.ops import fast_cuda, patches
+    from plslam_tpu_torch.solvers import pose as pose_mod
+    from plslam_tpu_torch.system import System
+
+    slam = System(settings, pipeline_depth=depth)
+    require(slam.builder.host_lines and slam._mapper is not None and slam._loop is not None,
+            "System should run host lines with its mapper and loop closer")
+    wrappers = (fast_cuda.fast_blur_stack, patches.gather_patches, pose_mod.pose_lm)
+    out = dict(slam=slam, frames=[], lsd_ms=[], chain_ms=[], ms=[])
+    single, chunk, chain, step, detect = (slam._dispatch_single, slam._dispatch_chunk, slam._dispatch_kf_chain,
+                                          slam._step, slam.builder.detect_lines)
+
+    def watched_step(*a):
+        frame, tel = step(*a)
+        if len(out["frames"]) < HL_CPU_FRAMES:
+            out["frames"].append(frame)
+        return frame, tel
+
+    def watched_detect(gray):
+        t0 = time.perf_counter()
+        res = detect(gray)
+        out["lsd_ms"].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def watched_chain(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = _strict(torch, chain, k)
+        torch.cuda.synchronize()
+        out["chain_ms"].append((time.perf_counter() - t0) * 1e3)
+        return aux
+
+    slam._step, slam.builder.detect_lines, slam._dispatch_kf_chain = watched_step, watched_detect, watched_chain
+    slam._dispatch_single = lambda *a: _strict(torch, single, *a)
+    slam._dispatch_chunk = lambda: _strict(torch, chunk)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    for g, d, t in frames:
+        t0 = time.perf_counter()
+        slam.track_rgbd(g, d, t)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    slam._flush_pending()
+    torch.cuda.synchronize()
+    out["launches"] = {w.__name__: w.launches for w in wrappers}
+    return out
+
+
+def run_host_lines():
+    """System with line_backend "host" and every default (see the module
+    docstring)."""
+    import dataclasses
+
+    import torch
+
+    from plslam_tpu_torch import load_settings
+    from plslam_tpu_torch.eval.ate import ate_rmse
+    from plslam_tpu_torch.features.frame import FrameBuilder
+    from plslam_tpu_torch.io import viewer
+    from plslam_tpu_torch.io.png import read_png
+    from plslam_tpu_torch.io.synthetic import SyntheticSequence
+    from plslam_tpu_torch.io.trajectory import load_trajectory_tum
+    from plslam_tpu_torch.system import System
+
+    with Phase("host_lines"):
+        settings = dataclasses.replace(load_settings(ROOT / "configs" / "TUM3.yaml"), line_backend="host")
+        seq = SyntheticSequence(n_frames=HL_FRAMES, seed=0, settings=settings)
+        frames = [seq.frame(i) for i in range(HL_FRAMES)]
+        # warm-up on a throwaway System: the process-wide constant tables
+        # are uploaded at a first use, which synchronises
+        warm = System(settings)
+        for g, d, t in frames[:2]:
+            warm.track_rgbd(g, d, t)
+        warm._flush_pending()
+        del warm
+        runs = {depth: _host_lines_run(settings, frames, depth) for depth in (0, PIPE_K)}
+        for depth, r in runs.items():
+            slam = r["slam"]
+            flags = slam.tracked_flags
+            with tempfile.TemporaryDirectory() as tmp:
+                slam.save_trajectory_tum(Path(tmp) / "traj.txt")
+                ate, n_pairs = ate_rmse(load_trajectory_tum(Path(tmp) / "traj.txt"), seq.gt_trajectory())
+            n_ln = int(slam.state.m.ln_valid.sum())
+            r.update(flags=flags, ate=ate, n_kf=int(slam.state.m.n_kf))
+            log(f"pipeline_depth={depth}: tracked {sum(flags)}/{HL_FRAMES}; ATE RMSE {ate * 100:.4f} cm over "
+                f"{n_pairs} frames; {n_ln} map lines, {r['n_kf']} keyframes; host LSD median "
+                f"{statistics.median(r['lsd_ms']):.3f} ms per frame (max {max(r['lsd_ms']):.3f}); median "
+                f"{statistics.median(r['ms']):.3f} ms per call; {len(r['chain_ms'])} chains, median "
+                f"{statistics.median(r['chain_ms']):.3f} ms per chain; launches {r['launches']}; every "
+                f"dispatch and chain under sync debug \"error\"")
+            require(len(flags) == HL_FRAMES and all(flags), f"pipeline_depth={depth}: a frame was not tracked")
+            require(ate <= 0.02, f"pipeline_depth={depth}: ATE {ate:.4f} m above 2 cm")
+            require(n_ln > 0, f"pipeline_depth={depth}: no map line")
+            require(r["launches"]["fast_blur_stack"] == HL_FRAMES and r["launches"]["gather_patches"] == HL_FRAMES
+                    and r["launches"]["pose_lm"] > 0, f"pipeline_depth={depth}: B1-B3 not launched")
+        sync, piped = runs[0], runs[PIPE_K]
+        require(piped["flags"] == sync["flags"], "the pipelined run's flags differ from the synchronous run's")
+
+        # the System's first frames against the port's CPU path
+        cpu = FrameBuilder(settings, device="cpu")
+        for i, (g, d, _) in enumerate(frames[:HL_CPU_FRAMES]):
+            raw = cpu.detect_lines(g)
+            ref = cpu(g, d, *raw)
+            for depth, r in runs.items():
+                f = r["frames"][i]
+                valid = f.ln_valid.cpu().numpy()
+                geom = max(float((getattr(f, k).cpu() - getattr(ref, k)).abs()[torch.from_numpy(valid)].max())
+                           for k in ("ln_sp", "ln_ep", "ln_line2d"))
+                bits = _bits_equal(f.ln_desc.cpu().numpy()[valid], ref.ln_desc.numpy()[valid])
+                log(f"frame {i}, pipeline_depth={depth}, vs CPU path: {int(valid.sum())} keylines, valid equal "
+                    f"{np.array_equal(valid, ref.ln_valid.numpy())}, geometry |d| {geom:.2e} (tol {TOL_LINE_GEOM}), "
+                    f"LBD bits equal {bits:.5f} (tol {TOL_DESC_BITS})")
+                require(np.array_equal(valid, raw[2]) and np.array_equal(valid, ref.ln_valid.numpy()),
+                        "keyline validity differs from the host LSD's")
+                require(geom <= TOL_LINE_GEOM and bits >= TOL_DESC_BITS, "card and CPU line fields disagree")
+        # the System's raw endpoints are the host code's: rebuild from them on the card, bit for bit
+        card = FrameBuilder(settings)
+        g, d, _ = frames[0]
+        again = card(g, d, *card.detect_lines(g))
+        for k in ("ln_sp", "ln_ep", "ln_valid"):
+            require(torch.equal(again._asdict()[k], sync["frames"][0]._asdict()[k]),
+                    f"{k}: the System's upload of the endpoints changed them")
+
+        slam = sync["slam"]
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            slam.dump_debug_images(tmp, gray=frames[-1][0])
+            dump_ms = (time.perf_counter() - t0) * 1e3
+            frame_img, map_img = viewer.draw_frame(frames[-1][0], slam.state), viewer.draw_map(slam.state)
+            ok = [np.array_equal(read_png(Path(tmp) / name)[..., ::-1], img)
+                  for name, img in (("frame.png", frame_img), ("map.png", map_img))]
+        drawn = int((map_img != 30).any(-1).sum())
+        log(f"dump_debug_images: {dump_ms:.3f} ms; frame.png {frame_img.shape} equal {ok[0]}, map.png "
+            f"{map_img.shape} equal {ok[1]} ({drawn} pixels drawn)")
+        require(all(ok) and drawn > 100, "the debug images do not decode to the drawings")
+
+
+def run_vocab():
+    """The vocabulary harvest on the card and the tree (see the module
+    docstring)."""
+    import torch
+
+    from plslam_tpu_torch.features.orb import ORBExtractor
+    from plslam_tpu_torch.loopclosing import train_vocab as tv
+    from plslam_tpu_torch.loopclosing.vocab import ASSET
+
+    with Phase("vocab"):
+        corpus = np.load(ROOT / "tests" / "data" / "vocab_corpus_ref.npz")
+        ref, per_ref = corpus["desc"], corpus["per_frame"]
+        asset = np.load(ASSET)
+        require(len(ref) == int(asset["n_train"]), "the corpus is not the shipped codebook's")
+        seen, describe = [], tv._descriptors
+
+        def recording(ext, gray, device):
+            desc = describe(ext, gray, device)
+            seen.append((gray, desc))
+            return desc
+
+        tv._descriptors = recording
+        try:
+            t0 = time.perf_counter()
+            desc = tv.harvest_descriptors()
+            harvest_s = time.perf_counter() - t0
+        finally:
+            tv._descriptors = describe
+        t0 = time.perf_counter()
+        words = tv.train_tree(desc)
+        train_s = time.perf_counter() - t0
+        log(f"harvest on the card: {len(desc)} descriptors from {len(seen)} frames in {harvest_s:.3f} s "
+            f"(reference corpus {len(ref)}); train_tree {train_s:.3f} s: {len(words)} words (shipped "
+            f"{len(asset['words'])})")
+        require(len(desc) == len(ref) and [len(x) for _, x in seen] == per_ref.tolist(),
+                "the descriptor count differs from the reference's")
+        rows = (desc != ref).any(1)
+        bits = _bits_equal(desc, ref)
+        same_words = words.shape == asset["words"].shape and np.array_equal(words, asset["words"])
+        n_word_diff = len({w.tobytes() for w in words} ^ {w.tobytes() for w in asset["words"]}) // 2
+        log(f"descriptors differing from the reference's: {int(rows.sum())} of {len(ref)} (bits equal {bits:.6f}, "
+            f"tol {TOL_DESC_BITS}); words: equal to the shipped codebook {same_words}, {n_word_diff} differ")
+        require(bits >= TOL_DESC_BITS, "the harvest's descriptor bits differ from the reference's beyond near-ties")
+        if rows.any():
+            starts = np.concatenate([[0], np.cumsum(per_ref)])
+            f = int(np.searchsorted(starts, int(np.argmax(rows)), side="right")) - 1
+            gray = seen[f][0]
+            ext = ORBExtractor(240, 320, n_features=500)
+            img = torch.from_numpy(np.ascontiguousarray(gray, np.float32))
+            card, cpu = ext(img.to("cuda")), ext(img)
+            v = cpu.valid.numpy()
+            same_kp = np.array_equal(card.valid.cpu().numpy(), v) and np.array_equal(card.octave.cpu().numpy(),
+                                                                                        cpu.octave.numpy())
+            d_uv = float(np.abs(card.uv.cpu().numpy()[v] - cpu.uv.numpy()[v]).max())
+            d_ang = float(np.abs(np.angle(np.exp(1j * (card.angle.cpu().numpy()[v] - cpu.angle.numpy()[v])))).max())
+            cd, rd = seen[f][1], ref[starts[f]:starts[f + 1]]
+            cc = cpu.desc.numpy()[v]
+            log(f"first frame that differs: {f} (scene {f // 8}, frame {f % 8}): {int((cd != rd).any(1).sum())} of "
+                f"{len(rd)} descriptors differ from the reference's; card vs CPU path: keypoints equal {same_kp}, "
+                f"|duv| {d_uv:.2e}, |dangle| {d_ang:.2e}, {int((cd != cc).any(1).sum())} descriptors differ, bits "
+                f"equal {_bits_equal(cd, cc):.5f}; CPU path vs reference: {int((cc != rd).any(1).sum())} differ")
+            require(same_kp and d_uv <= 1e-3 and d_ang <= 1e-3 and _bits_equal(cd, cc) >= TOL_DESC_BITS,
+                    "the card's ORB parts from the CPU path beyond near-ties on that frame")
+
+
 def _known_status(status):
     """What a host knows of a batch's statuses: False all UNINIT, True none,
     None mixed (examples/multi_sequence.py)."""
@@ -1697,6 +1944,8 @@ def main() -> int:
     run_mapping("mapping TUM1", settings, depth_range=MAP_DEPTH_RANGE)
     run_mapping("mapping TUM3", lines_settings, use_loop_closing=False)
     run_low_texture()
+    run_host_lines()
+    run_vocab()
     # the kernels line counts the launches of this slice's path, the batched
     # one (B4 from the fast phase: it is not on the step)
     for name, n in run_batched().items():

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and the host line detector.
 
 Each `csrc/*.cu` source is compiled by its own nvcc process, all started
 together, and the objects are linked into one shared library with a plain
@@ -8,6 +8,11 @@ by a hash of the sources and flags, and is built at first use; a process
 builds it at most once. Every C entry returns
 `cudaGetLastError()` after its launch and `check` raises on a non-zero
 code.
+
+The host LSD (`native/lsd.cpp`, the reference's native line detector,
+read and never edited) is built by g++ with native/Makefile's flags into
+`.torch_build/liblsd_<hash>.so` at first use, beside the CUDA library and
+never into `native/build/`.
 """
 
 from __future__ import annotations
@@ -27,8 +32,12 @@ BUILD_DIR = _PKG.parent / ".torch_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+LSD_SOURCE = _PKG.parent / "native" / "lsd.cpp"
+LSD_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]  # native/Makefile's CXXFLAGS
+
 _lock = threading.Lock()
 _lib = None
+_lsd = None
 last_build = {}  # what the last build in this process did: seconds, path, ptxas report
 
 P = ctypes.c_void_p
@@ -131,3 +140,38 @@ def check(rc: int, name: str):
     if rc != 0:
         msg = _lib.plslam_error_string(rc).decode() if _lib is not None else "?"
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def build_lsd() -> Path:
+    """Compile native/lsd.cpp if no build of this source with these flags
+    exists. Raises if there is no compiler or the build fails."""
+    digest = hashlib.sha256((" ".join(LSD_FLAGS) + "\n").encode() + LSD_SOURCE.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"liblsd_{digest}.so"
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host LSD (native/lsd.cpp) needs a C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        tmp = Path(work) / out.name
+        cmd = [cxx, *LSD_FLAGS, "-o", str(tmp), str(LSD_SOURCE)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+def lsd_library():
+    """The loaded host LSD (built on first use); `lsd_detect` as
+    native/lsd.cpp declares it."""
+    global _lsd
+    with _lock:
+        if _lsd is None:
+            lib = ctypes.CDLL(str(build_lsd()))
+            fp = ctypes.POINTER(ctypes.c_float)
+            lib.lsd_detect.restype = ctypes.c_int
+            lib.lsd_detect.argtypes = [fp, I, I, fp, I, F, F, F, F]
+            _lsd = lib
+        return _lsd

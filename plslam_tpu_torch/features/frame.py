@@ -5,9 +5,13 @@ undistortion, depth lookup and the virtual right coordinate u_r = u - bf/d;
 with lines on (`UseLines`, default 1, `line_backend: "device"`), dense LSD
 on the image (ops/lsd_device.py), LBD on the full-resolution gradients
 (ops/lbd.py), endpoint undistortion, the normalised 2-D line, the segment
-angle and endpoint depths. With lines off, every line slot is invalid
-and the line fields are the same each frame: the builder computes them
-once, as the reference computes them from empty lines.
+angle and endpoint depths. With `line_backend: "host"` the segments come
+from the host LSD instead (ops/lsd.py, native/lsd.cpp): `detect_lines`
+runs it on the host image and `build` takes its endpoint arrays beside
+the images; the rest of the line front end is the same. With lines off,
+every line slot is invalid and the line fields are the same each frame:
+the builder computes them once, as the reference computes them from empty
+lines.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from plslam_tpu_torch import constants as C
 from plslam_tpu_torch.config import Settings
 from plslam_tpu_torch.features.orb import ORBExtractor
 from plslam_tpu_torch.geometry import camera
-from plslam_tpu_torch.ops import brief, lbd, lsd_device
+from plslam_tpu_torch.ops import brief, lbd, lsd, lsd_device
 from plslam_tpu_torch.utils.device import resolve_device
 
 
@@ -48,7 +52,8 @@ class FrameData(NamedTuple):
 
 
 class FrameBuilder:
-    """gray / depth images -> FrameData on `device` (default: the card)."""
+    """gray / depth images (+ host-detected line endpoints with
+    `line_backend: "host"`) -> FrameData on `device` (default: the card)."""
 
     def __init__(
         self,
@@ -57,10 +62,8 @@ class FrameBuilder:
         line_capacity: int = C.MAX_LINES,
         device="cuda",
     ):
-        if settings.use_lines and settings.line_backend != "device":
-            raise NotImplementedError(
-                f"line_backend {settings.line_backend!r}: the port detects lines on the device only; "
-                "the host LSD (native/lsd.cpp) is not ported yet (ROADMAP A21)")
+        if settings.line_backend not in ("device", "host"):
+            raise ValueError(f"line_backend must be 'device' or 'host', got {settings.line_backend!r}")
         self.s = settings
         self.device = resolve_device(device)
         self.extractor = ORBExtractor(
@@ -79,6 +82,8 @@ class FrameBuilder:
         self.has_dist = bool((dist != 0).any())
         self.bf = float(settings.bf)
         self.line_capacity = line_capacity
+        # lines detected on the host (native/lsd.cpp) and passed to build()
+        self.host_lines = settings.use_lines and settings.line_backend == "host"
         if not settings.use_lines:
             # every keyline invalid: the line fields are the same each frame
             L = line_capacity
@@ -122,22 +127,44 @@ class FrameBuilder:
             ln_valid=ln_valid,
         )
 
-    def _as_tensor(self, a):
+    def detect_lines(self, gray_np: np.ndarray):
+        """Host LSD on gray [H, W] -> (sp f32[L, 2], ep f32[L, 2], valid
+        bool[L]) numpy arrays, the endpoints `build` takes with
+        `line_backend: "host"`. With the device backend or lines off the
+        builder needs none and this returns empty ones, as the reference."""
+        if not self.host_lines:
+            L = self.line_capacity
+            return np.zeros((L, 2), np.float32), np.zeros((L, 2), np.float32), np.zeros(L, bool)
+        return lsd.detect_lines_host(np.asarray(gray_np), self.line_capacity)
+
+    def _as_tensor(self, a, dtype=torch.float32):
         if isinstance(a, np.ndarray):
-            a = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-        return a.to(self.device, torch.float32)
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device, dtype)
 
-    def __call__(self, gray, depth) -> FrameData:
+    def __call__(self, gray, depth, ln_sp=None, ln_ep=None, ln_valid=None) -> FrameData:
         """gray f32[H, W] (0..255), depth f32[H, W] metres (numpy or tensor),
-        uploaded to the builder's device (a blocking copy from host memory)."""
-        return self.build(self._as_tensor(gray), self._as_tensor(depth))
+        uploaded to the builder's device (a blocking copy from host memory).
+        With `line_backend: "host"` the endpoints from `detect_lines` may be
+        passed; if they are not, this detects them on gray."""
+        if self.host_lines and ln_sp is None:
+            g = gray.cpu().numpy() if isinstance(gray, torch.Tensor) else gray
+            ln_sp, ln_ep, ln_valid = self.detect_lines(g)
+        lines = () if ln_sp is None else (self._as_tensor(ln_sp), self._as_tensor(ln_ep),
+                                          self._as_tensor(ln_valid, torch.bool))
+        return self.build(self._as_tensor(gray), self._as_tensor(depth), *lines)
 
-    def build(self, gray, depth) -> FrameData:
+    def build(self, gray, depth, ln_sp=None, ln_ep=None, ln_valid=None) -> FrameData:
         """The frame from gray and depth f32[H, W] tensors already on the
         builder's device: no upload and, once the first frame has copied the
-        builder's constant tables, no host synchronisation."""
+        builder's constant tables, no host synchronisation. With
+        `line_backend: "host"`, ln_sp / ln_ep f32[L, 2] and ln_valid bool[L]
+        (raw endpoints from `detect_lines`, on the same device) are required;
+        otherwise they are ignored."""
         if gray.device.type != self.device.type or depth.device.type != self.device.type:
             raise ValueError(f"FrameBuilder.build wants tensors on {self.device}, got {gray.device} / {depth.device}")
+        if self.host_lines and (ln_sp is None or ln_ep is None or ln_valid is None):
+            raise ValueError("line_backend 'host': build needs the endpoints from detect_lines")
         fs = self.extractor(gray)
         uv_raw = fs.uv
         # undistort a zeroed stand-in for padded slots: the fixed point
@@ -148,7 +175,9 @@ class FrameBuilder:
         d = self._depth_at(depth, uv_raw, fs.valid)
         ur = torch.where(d > 0, uv_und[:, 0] - self.bf / torch.where(d > 0, d, 1.0), -1.0)
 
-        if self.s.use_lines:
+        if self.host_lines:
+            lines = self._lines(gray, depth, ln_sp, ln_ep, ln_valid)
+        elif self.s.use_lines:
             lines = self._lines(gray, depth, *lsd_device.detect_lines_device(gray, self.line_capacity))
         else:
             lines = self._no_lines

@@ -1,6 +1,8 @@
-"""A PNG decoder on zlib and numpy, for the TUM reader (io/tum.py).
+"""A PNG decoder and encoder on zlib and numpy, for the TUM reader
+(io/tum.py) and the debug images (io/viewer.py).
 
-The reference decodes with OpenCV, which the card's machine does not have.
+The reference decodes and writes with OpenCV, which the card's machine does
+not have.
 This reads what TUM RGB-D sequences hold and nothing else: non-interlaced
 8-bit gray, RGB and RGBA, and 16-bit gray (depth), with all five row
 filters. Any other file (interlaced, palette, gray+alpha, 1/2/4-bit,
@@ -10,6 +12,9 @@ The row filters run on a wavefront: a reconstructed byte depends on its
 left, upper and upper-left neighbours, so all pixels of one anti-diagonal
 (y + x constant) are reconstructed together, H + W - 1 numpy steps for the
 whole image.
+
+`write_png` writes 8-bit gray and 3-channel images with filter type 0 on
+every row, taking colour images in BGR order as cv2.imwrite does.
 """
 
 from __future__ import annotations
@@ -99,6 +104,27 @@ def read_png(path) -> np.ndarray:
     if depth == 16:
         return img.view(">u2").reshape(H, W).astype(np.uint16)
     return img.reshape(H, W) if ch == 1 else img.reshape(H, W, ch)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """Write u8[H, W] (gray) or u8[H, W, 3] (BGR, as cv2.imwrite takes it)
+    as a PNG file: 8-bit gray or RGB, every row with filter type 0, zlib.
+    cv2.imread gives the array back; read_png gives it in file order (RGB
+    for a colour image)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png takes u8[H, W] or u8[H, W, 3], got {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    rgb = img if img.ndim == 2 else img[..., ::-1]
+    raw = np.zeros((H, 1 + rgb[0].size), np.uint8)  # a leading 0: filter type None
+    raw[:, 1:] = rgb.reshape(H, -1)
+    header = struct.pack(">IIBBBBB", W, H, 8, 0 if img.ndim == 2 else 2, 0, 0, 0)
+    Path(path).write_bytes(_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                           + _chunk(b"IEND", b""))
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:

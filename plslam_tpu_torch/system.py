@@ -34,9 +34,11 @@ asynchronously and taken up once it has arrived. Neither dispatch
 synchronises with the device. Device->host copies go into pinned memory
 with an event recorded after them, and only that event is waited on.
 
-Not ported yet, and refused with NotImplementedError rather than run as a
-subset: the debug images (`dump_debug_images`) and the host line detector
-(`line_backend: "host"`), ROADMAP A21.
+With `line_backend: "host"` each call runs the host LSD (ops/lsd.py) on the
+frame's gray image before dispatch, and the endpoints travel with the
+images: one pinned buffer per frame or chunk, one non-blocking copy.
+`dump_debug_images` draws the frame and the map (io/viewer.py) and writes
+them as PNG files (io/png.py).
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ from plslam_tpu_torch.config import Settings, load_settings
 from plslam_tpu_torch.features.frame import FrameBuilder
 from plslam_tpu_torch.geometry import se3
 from plslam_tpu_torch.io import trajectory as traj_io
+from plslam_tpu_torch.io import viewer
+from plslam_tpu_torch.io.png import write_png
 from plslam_tpu_torch.io.snapshot import load_state, save_state
 from plslam_tpu_torch.pipeline import tracking as T
 from plslam_tpu_torch.pipeline.loopclosing import LoopCloser
@@ -62,10 +66,6 @@ from plslam_tpu_torch.pipeline.reloc import Relocalizer
 from plslam_tpu_torch.utils.precision import mm
 
 TRACKING_STATES = {0: "NOT_INITIALIZED", 1: "OK", 2: "LOST"}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to plslam_tpu_torch yet (ROADMAP {item})")
 
 
 def _to_host_async(t):
@@ -98,33 +98,51 @@ class _TelChunk:
         return self.host if idx is None else self.host[idx]
 
 
-class _Staging:
-    """Upload of n <= K frames: their gray and depth images stacked into a
-    pinned host buffer f32[K, 2, H, W], then one non-blocking copy to the
-    card. Two buffers are used in turn, and a buffer is written again only
-    once the event recorded after its last copy has completed (it has
-    whenever the frames it carried have been finalized, so the wait is a
-    safeguard that does not block in the pipelined loop)."""
+def _pack_frames(host, frames, H, W):
+    """Write n frames into host f32[>= n, 2HW + 5L]: per row the gray and
+    depth images, then with host lines each keyline as (sp, ep, valid)."""
+    n_img = 2 * H * W
+    for j, (gray, depth, lines) in enumerate(frames):
+        host[j, :n_img] = np.stack([np.asarray(gray, np.float32), np.asarray(depth, np.float32)]).reshape(-1)
+        if lines is not None:
+            sp, ep, valid = lines
+            host[j, n_img:] = np.concatenate([sp, ep, valid[:, None]], 1).reshape(-1)
 
-    def __init__(self, K, H, W, device):
-        self.device = device
-        self.bufs = [torch.empty((K, 2, H, W), dtype=torch.float32, pin_memory=True) for _ in range(2)]
+
+def _unpack_frames(dev, H, W, L):
+    """f32[n, 2HW + 5L] on the device -> (images f32[n, 2, H, W], keylines
+    f32[n, L, 5] or None): views, no copy."""
+    n_img = 2 * H * W
+    return dev[:, :n_img].view(-1, 2, H, W), dev[:, n_img:].view(-1, L, 5) if L else None
+
+
+class _Staging:
+    """Upload of n <= K frames: their gray and depth images (and, with host
+    lines, their keyline endpoints) packed into a pinned host buffer
+    f32[K, 2HW + 5L], then one non-blocking copy to the card. Two buffers
+    are used in turn, and a buffer is written again only once the event
+    recorded after its last copy has completed (it has whenever the frames
+    it carried have been finalized, so the wait is a safeguard that does
+    not block in the pipelined loop)."""
+
+    def __init__(self, K, H, W, L, device):
+        self.shape, self.device = (H, W, L), device
+        self.bufs = [torch.empty((K, 2 * H * W + 5 * L), dtype=torch.float32, pin_memory=True) for _ in range(2)]
         self.events = [None, None]
         self.turn = 0
 
-    def upload(self, pairs):
+    def upload(self, frames):
         i, self.turn = self.turn, 1 - self.turn
         if self.events[i] is not None and not self.events[i].query():
             self.events[i].synchronize()
-        buf = self.bufs[i][: len(pairs)]
-        host = buf.numpy()
-        for j, (gray, depth) in enumerate(pairs):
-            host[j, 0], host[j, 1] = gray, depth
+        buf = self.bufs[i][: len(frames)]
+        H, W, L = self.shape
+        _pack_frames(buf.numpy(), frames, H, W)
         out = torch.empty(buf.shape, dtype=torch.float32, device=self.device)
         out.copy_(buf, non_blocking=True)
         self.events[i] = torch.cuda.Event()
         self.events[i].record(torch.cuda.current_stream(self.device))
-        return out
+        return _unpack_frames(out, H, W, L)
 
 
 def _rebase_aux(m, prev_valid):
@@ -176,7 +194,7 @@ class System:
         if self.pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, got {self.pipeline_depth}")
 
-        self.builder = FrameBuilder(settings, device=device)  # raises for line_backend "host" (A21)
+        self.builder = FrameBuilder(settings, device=device)
         self.device = self.builder.device
         # the keyframe chain recomputes the working set after the mapper or
         # loop closer changed the map, so the step's own refresh would be
@@ -197,9 +215,10 @@ class System:
         self.aux_reads = 0  # device->host copies of keyframe-chain results (one per chain)
         # in-flight frames, oldest first: (_TelChunk, row or None, frame
         # source, timestamp, dispatch ms); the source is ("dev", FrameData)
-        # for a single dispatch and ("host", gray, depth) for a chunk's frame
+        # for a single dispatch and ("host", gray, depth, lines) for a chunk's
+        # frame (lines: the host LSD's endpoint arrays, or None)
         self._inflight: deque = deque()
-        self._buf: list = []  # pipelined: (gray, depth, timestamp, t_start) awaiting a chunk
+        self._buf: list = []  # pipelined: (gray, depth, lines, timestamp, t_start) awaiting a chunk
         # dispatched keyframe chains whose aux vector is not yet taken up:
         # dict(aux=host array, event, kf_id, counter)
         self._pending_chain: deque = deque()
@@ -231,31 +250,41 @@ class System:
         w = np.array([0.299, 0.587, 0.114]) if self.settings.rgb else np.array([0.114, 0.587, 0.299])
         return (rgb.astype(np.float32) @ w).astype(np.float32)
 
-    def _upload(self, pairs):
-        """(gray, depth) host images of n frames -> f32[n, 2, H, W] on the
-        device: one non-blocking copy from pinned memory on the card."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(np.stack([np.stack([np.asarray(g, np.float32), np.asarray(d, np.float32)])
-                                              for g, d in pairs]))
-        if self._staging is None:
-            self._staging = _Staging(max(self.pipeline_depth, 1), self.settings.height, self.settings.width,
-                                     self.device)
-        return self._staging.upload(pairs)
+    def _host_lines(self, gray):
+        """The host LSD's endpoint arrays for this frame, or None when the
+        builder detects its lines on the device (or lines are off)."""
+        return self.builder.detect_lines(gray) if self.builder.host_lines else None
 
-    def _step(self, gray, depth):
-        """Build and track one uploaded frame, the init/track switch decided
-        by what the host knows -> (FrameData, telemetry on the device)."""
-        frame = self.builder.build(gray, depth)
+    def _upload(self, frames):
+        """(gray, depth, lines) host data of n frames -> (images f32[n, 2, H,
+        W], keylines f32[n, L, 5] or None) on the device: one non-blocking
+        copy from pinned memory on the card."""
+        H, W = self.settings.height, self.settings.width
+        L = self.builder.line_capacity if self.builder.host_lines else 0
+        if self.device.type != "cuda":
+            host = np.empty((len(frames), 2 * H * W + 5 * L), np.float32)
+            _pack_frames(host, frames, H, W)
+            return _unpack_frames(torch.from_numpy(host), H, W, L)
+        if self._staging is None:
+            self._staging = _Staging(max(self.pipeline_depth, 1), H, W, L, self.device)
+        return self._staging.upload(frames)
+
+    def _step(self, gray, depth, lines=None):
+        """Build and track one uploaded frame (lines: its keylines f32[L, 5]
+        with host lines), the init/track switch decided by what the host
+        knows -> (FrameData, telemetry on the device)."""
+        ln = () if lines is None else (lines[:, 0:2], lines[:, 2:4], lines[:, 4] > 0)
+        frame = self.builder.build(gray, depth, *ln)
         known = self._initialised
         self.state, out = self.tracker.step(self.state, frame, initialised=known)
         self._initialised = True if known else None  # a failed init stays UNINIT
         return frame, out.telemetry
 
-    def _dispatch_single(self, gray, depth, timestamp, t_start):
+    def _dispatch_single(self, gray, depth, lines, timestamp, t_start):
         """One frame: upload, build, step and the start of its telemetry
         copy; the frame joins the in-flight queue."""
-        up = self._upload([(gray, depth)])
-        frame, tel = self._step(up[0, 0], up[0, 1])
+        imgs, lns = self._upload([(gray, depth, lines)])
+        frame, tel = self._step(imgs[0, 0], imgs[0, 1], None if lns is None else lns[0])
         self.telemetry_reads += 1
         self._inflight.append((_TelChunk(tel), None, ("dev", frame), float(timestamp),
                                (time.perf_counter() - t_start) * 1e3))
@@ -266,13 +295,13 @@ class System:
         serves all K finalizes. Nothing here waits for the device."""
         K = self.pipeline_depth
         t0 = time.perf_counter()
-        up = self._upload([(g, d) for g, d, _, _ in self._buf])
-        tels = [self._step(up[i, 0], up[i, 1])[1] for i in range(K)]
+        imgs, lns = self._upload([b[:3] for b in self._buf])
+        tels = [self._step(imgs[i, 0], imgs[i, 1], None if lns is None else lns[i])[1] for i in range(K)]
         tc = _TelChunk(torch.stack(tels))
         self.telemetry_reads += 1
         disp_ms = (time.perf_counter() - t0) * 1e3 / K
-        for i, (gray, depth, ts, _) in enumerate(self._buf):
-            self._inflight.append((tc, i, ("host", gray, depth), ts, disp_ms))
+        for i, (gray, depth, lines, ts, _) in enumerate(self._buf):
+            self._inflight.append((tc, i, ("host", gray, depth, lines), ts, disp_ms))
         self._buf.clear()
 
     def track_rgbd(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float):
@@ -284,14 +313,15 @@ class System:
         None; the next frame tracks from the recovered pose)."""
         t_start = time.perf_counter()
         gray = self._to_gray(rgb)
+        lines = self._host_lines(gray)
         K = self.pipeline_depth
         ret = None
         if K == 0:
-            self._dispatch_single(gray, depth, timestamp, t_start)
+            self._dispatch_single(gray, depth, lines, timestamp, t_start)
             while self._inflight:
                 ret = self._finalize_one()
         else:
-            self._buf.append((gray, depth, float(timestamp), t_start))
+            self._buf.append((gray, depth, lines, float(timestamp), t_start))
             if len(self._buf) == K:
                 self._dispatch_chunk()
             while self._inflight and len(self._buf) + len(self._inflight) > K:
@@ -316,8 +346,8 @@ class System:
         """Dispatch the buffered frames one by one and finalize everything
         in flight -> the last finalized frame's Tcw or None."""
         ret = None
-        for gray, depth, ts, _ in self._buf:
-            self._dispatch_single(gray, depth, ts, time.perf_counter())
+        for gray, depth, lines, ts, _ in self._buf:
+            self._dispatch_single(gray, depth, lines, ts, time.perf_counter())
         self._buf.clear()
         while self._inflight:
             ret = self._finalize_one()
@@ -329,7 +359,8 @@ class System:
         needs a past frame)."""
         if fsrc[0] == "dev":
             return fsrc[1]
-        return self.builder(fsrc[1], fsrc[2])
+        _, gray, depth, lines = fsrc
+        return self.builder(gray, depth, *(lines if lines is not None else ()))
 
     def _kf_chain(self, ts, k: int, detect_on: bool = False):
         """The per-keyframe chain on the device: the local mapper, the
@@ -630,7 +661,14 @@ class System:
         self.state = self.tracker.refresh_local_set(self.state)
 
     def dump_debug_images(self, out_dir: str | Path, gray=None):
-        raise _not_ported("System.dump_debug_images (io/viewer.py)", "A21")
+        """The headless FrameDrawer / MapDrawer (io/viewer.py): writes
+        frame.png (if gray is given) and map.png into out_dir, from the
+        state after the newest dispatched frame."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        if gray is not None:
+            write_png(out / "frame.png", viewer.draw_frame(np.asarray(gray), self.state))
+        write_png(out / "map.png", viewer.draw_map(self.state))
 
     # ---------------------------------------------------------------- state
     @property

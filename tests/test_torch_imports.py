@@ -1,6 +1,7 @@
 """Import hygiene of the port: every module of plslam_tpu_torch and
-chip_smoke.py import with `jax` and `plslam_tpu` blocked (the machine with
-the card has no JAX), and chip_smoke.py refuses to run without CUDA."""
+chip_smoke.py import with `jax`, `plslam_tpu` and `cv2` blocked (the
+machine with the card has neither JAX nor OpenCV), and chip_smoke.py
+refuses to run without CUDA."""
 
 import os
 import subprocess
@@ -14,7 +15,7 @@ import importlib, pkgutil, sys
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "plslam_tpu", "cv2"):
             raise ImportError("blocked import: " + name)
         return None
 
@@ -24,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(plslam_tpu_torch.__path__, "plsla
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "plslam_tpu", "cv2"))
 assert not leaked, leaked
 print("imported", len(names) + 2, "modules")
 """

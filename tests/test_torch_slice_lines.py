@@ -67,7 +67,7 @@ def run():
         got.append(out)
         frames_t.append(f)
     return dict(s=s, ref=ref, got=got, jt=jt, jst=jst, t=t, st=st,
-                jframes=jframes, frames=frames_t, mid_state=mid_state)
+                jframes=jframes, frames=frames_t, mid_state=mid_state, inputs=frames)
 
 
 def test_status_keyframes_and_map_lines_per_frame(run):
@@ -147,6 +147,23 @@ def test_convert_carries_live_line_fields(run):
 
 
 def test_host_line_backend_is_not_ported(run):
+    """The host line backend is ported: a host-lines FrameBuilder builds
+    frame MID from the host LSD's endpoints (ops/lsd.py) with the device
+    builder's point fields, keylines where the host LSD found segments, and
+    refuses a build without endpoints (tests/test_torch_lsd_host.py holds
+    it to the reference)."""
     s = dataclasses.replace(run["s"], line_backend="host")
-    with pytest.raises(NotImplementedError, match="host"):
-        FrameBuilder(s, device="cpu")
+    b = FrameBuilder(s, device="cpu")
+    g, d = (torch.from_numpy(a) for a in run["inputs"][MID][:2])
+    sp, ep, valid = b.detect_lines(g.numpy())
+    assert valid.sum() > 5 and valid[: valid.sum()].all()
+    f = b.build(g, d, torch.from_numpy(sp), torch.from_numpy(ep), torch.from_numpy(valid))
+    np.testing.assert_array_equal(f.ln_valid.numpy(), valid)
+    dev = run["frames"][MID]
+    for name in ("uvr", "desc", "valid", "octave"):
+        assert torch.equal(getattr(f, name), getattr(dev, name)), name
+    assert torch.equal(b(g.numpy(), d.numpy()).ln_desc, f.ln_desc)  # __call__ detects the lines itself
+    with pytest.raises(ValueError, match="host"):
+        b.build(g, d)
+    with pytest.raises(ValueError, match="line_backend"):
+        FrameBuilder(dataclasses.replace(s, line_backend="gpu"), device="cpu")

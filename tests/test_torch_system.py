@@ -38,6 +38,8 @@ import jax.numpy as jnp
 from plslam_tpu.io.synthetic import SyntheticSequence as JSyntheticSequence
 from plslam_tpu.system import System as JSystem
 from plslam_tpu_torch import convert
+from plslam_tpu_torch.io import viewer
+from plslam_tpu_torch.io.png import read_png
 from plslam_tpu_torch.io.synthetic import SyntheticSequence
 from plslam_tpu_torch.pipeline import tracking
 from plslam_tpu_torch.solvers.local_ba import LocalBA
@@ -245,15 +247,19 @@ def test_options_outside_the_slice_raise(run, tmp_path):
     # constructs, and a save / load round trip returns with the state intact
     piped = System(s, use_local_mapping=False, use_loop_closing=False, pipeline_depth=2, device="cpu")
     assert piped.pipeline_depth == 2 and piped.tracker.in_step_local_refresh
-    with pytest.raises(NotImplementedError, match="A21"):
-        System(dataclasses.replace(s, line_backend="host"), use_local_mapping=False, use_loop_closing=False,
-               device="cpu")
+    # the host line backend and the debug images are ported: a host-lines
+    # System constructs, and the run's System writes its two images
+    hosted = System(dataclasses.replace(s, line_backend="host"), use_local_mapping=False, use_loop_closing=False,
+                    device="cpu")
+    assert hosted.builder.host_lines and hosted._host_lines(run["inputs"][0][0]) is not None
     slam = run["got_sys"]
     kept = slam.state
     assert slam.save_map(tmp_path / "m.npz") is None and slam.load_map(tmp_path / "m.npz") is None
     assert torch.equal(slam.state.m.kf_pose, kept.m.kf_pose) and torch.equal(slam.state.local_set, kept.local_set)
-    with pytest.raises(NotImplementedError, match="A21"):
-        slam.dump_debug_images(tmp_path)
+    slam.dump_debug_images(tmp_path / "dbg", gray=run["inputs"][0][0])
+    for name, img in (("frame.png", viewer.draw_frame(run["inputs"][0][0], slam.state)),
+                      ("map.png", viewer.draw_map(slam.state))):
+        np.testing.assert_array_equal(read_png(tmp_path / "dbg" / name)[..., ::-1], img)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             System(s, use_local_mapping=False, use_loop_closing=False)
