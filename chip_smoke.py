@@ -128,24 +128,36 @@ Phases, each timed and printed:
               five assertions the reference passes on the CPU (a loop
               closed, all frames tracked in both runs, the no-loop ATE and
               gap above 8 cm, gap_on < 0.5 gap_off, ATE_on < 1.15 ATE_off);
-              (b) configs/TUM2.yaml at 640x480 on the same circuit (lines,
-              mapper and loop closing on): every frame tracked and the
-              global-BA queue drained; on this circuit neither the port nor
-              the reference closes a loop at 640x480 (PERF.md, §6), so
-              the loop-on run must equal the loop-off run and the run's
-              last keyframe is then closed onto keyframe 0 directly (a
-              loop-on gap below the loop-off gap if the run closes one);
-              every chain under CUDA's sync debug mode "error". The first
-              accepted closure of each loop-on run is
+              every chain under CUDA's sync debug mode "error". (The
+              configs/TUM2.yaml run on the same circuit at 640x480 was cut
+              for the run's budget when the mesh phase came.) The first
+              accepted closure of the loop-on run is
               replayed from its pre-closure state on the card (bit for bit
               equal to the run's own), under torch.profiler (launches,
               device-busy), and on the CPU path (every index and flag
               equal); the same for the run's last global-BA slice (the one
               with the outlier sweep). Printed: ms per closure, per slice,
               per tracked call and per chain.
-Then one JSON line with the kernels (launches: B1-B3 from batched, this
-slice's path; B4 from fast; the system, pipelined and loop phases print
-their own), and as
+ 15. mesh     config 5 sharded over a (seq, lm) device mesh (parallel/batch.py
+              with DeviceMesh + DTensor, eval/dryrun_mesh.py spawned by
+              dryrun_mesh.spawn): the batched phase's 4 sequences on a
+              (1, 1) mesh of one process over NCCL (NCCL takes one rank
+              per card; the (2, 2) mesh runs on four cards or on the
+              CPU), 5 frames stepped and the mapper chain once on frame
+              0's map, every step and the chain under sync debug "error":
+              the steps bit for bit the batched phase's steps without the
+              mapper, the chain bit for bit its first chain, every frame
+              tracked, the map at rest on (Shard(0), Shard(1)) for pt_*
+              and (Shard(0), Replicate()) for the rest, B1 and B2 once per
+              local sequence per frame and B3 twice per tracked step on
+              every rank, frame 1 under torch.profiler with each launch
+              on the card; ms per sharded step and chain. Then the
+              reference dryrun's shapes in the same rank (its four lines).
+              Last: after it (a child process profiling the card) a
+              profile in this process twice saw no device event (PERF.md).
+Then one JSON line with the kernels (launches: B1-B3 from mesh, this
+slice's path, summed over its ranks; B4 from fast; the system, batched,
+pipelined and loop phases print their own), and as
 the last line
 {"ok": true, "device": {...}} -- printed only if every phase passed. Any
 failure exits non-zero; without CUDA the script exits non-zero at once.
@@ -175,9 +187,8 @@ SYS_BEFORE, SYS_BLACK, SYS_AFTER, SYS_STRIDE, SYS_MOTION = 20, 5, 10, 3, 6.0
 MAP_FRAMES = 30
 MAP_DEPTH_RANGE = 3.0  # metres, TUM1 run only
 PIPE_K = 4  # the pipelined phase's pipeline_depth, as bench.py runs the reference
-# the loop phase: tests/test_loop_e2e.py's fixture, and TUM2 on its circuit
+# the loop phase: tests/test_loop_e2e.py's fixture
 LOOP_FRAMES, LOOP_REVISIT = 190, 150
-TUM2_FRAMES, TUM2_REVISIT = 190, 150
 # the low_texture phase (BASELINE.json config 3): the reference test's scene
 # (tests/test_lines.py:15) at full width
 LT_FRAMES = 30
@@ -188,6 +199,12 @@ BATCH_FRAMES = 25
 BATCH_CAPS = dict(max_pts=8192, max_kf=64)
 BATCH_SOLO_FRAMES = 5  # frames of each sequence also run alone
 BATCH_PROFILE_FRAME = 10
+MESH_FRAMES = BATCH_SOLO_FRAMES  # the mesh phase's frames, held to the batched steps without the mapper
+MESH_PROFILE_FRAME = 1  # its frame built and stepped under torch.profiler
+# one rank on the one card, over NCCL (a (1, 1) mesh): NCCL takes one rank
+# per card, and DTensor's functional collectives crash over gloo on CUDA
+# tensors (torch 2.11), so a (2, 2) mesh runs on four cards or on the CPU
+MESH_RANKS = 1
 # the host_lines phase
 HL_FRAMES = 30
 HL_CPU_FRAMES = 3  # frames whose line fields are held against the CPU path
@@ -1594,15 +1611,73 @@ def run_batched():
                     msg += "; solo chain on the card vs the CPU path: " + diff(
                         numpy_map(solo), numpy_map(cpu_mapper.process(_to(unstack(pre_c, b), "cpu"), int(k_c[b]))))
                 log(msg)
+    # what the mesh phase compares with: the steps without the mapper and
+    # the first chain (frame 0's keyframes)
+    chain0 = {f: getattr(first_chain[3], f).cpu().numpy() for f in first_chain[3]._fields}
+    return launches, dict(steps=bouts[:MESH_FRAMES], chain0=chain0)
+
+
+def run_mesh(batched):
+    """The mesh phase (see the module docstring): config 5 on a (seq, lm)
+    mesh of MESH_RANKS processes on the card, against the batched phase's
+    unsharded run (`batched`), then the small dry run. -> the launches of
+    the B1-B3 wrappers summed over the ranks."""
+    from plslam_tpu_torch.eval import dryrun_mesh
+    from plslam_tpu_torch.pipeline import tracking as T
+
+    with Phase("mesh"), tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/config5.npz"
+        t0 = time.perf_counter()
+        # then the reference dryrun's shapes in the same ranks, its four
+        # lines printed by rank 0
+        dryrun_mesh.spawn(MESH_RANKS, "cuda", f"{tmp}/store", out, config5=True, n_frames=MESH_FRAMES,
+                          profile_frame=MESH_PROFILE_FRAME, small_after=True)
+        wall = time.perf_counter() - t0
+        z = dict(np.load(out))
+        names = [str(x) for x in z["launch_names"]]
+        launches = dict(zip(names, (int(x) for x in z["launches"].sum(0))))
+        seen = dict(zip(names, (int(x) for x in z["kernels_seen"].sum(0))))
+        seq, lm = (int(x) for x in z["mesh_shape"])
+        ms_step = [round(float(z[f"['ms_step'][{i}]"]), 3) for i in range(MESH_FRAMES)]
+        ms_chain = round(float(z["['ms_chain'][0]"]), 3)
+        log(f"config 5 on a (seq {seq}, lm {lm}) mesh of {MESH_RANKS} process(es) on one card, backend "
+            f"{z['backend']}: {MESH_FRAMES} frames and one chain, {wall:.2f} s with the ranks' start-up and the "
+            f"small dry run; ms per sharded step {ms_step}, the chain {ms_chain} ms")
+        log(f"wrapper launches per rank {dict(zip(names, z['launches'].T.tolist()))}; on the card by the profiler "
+            f"during frame {MESH_PROFILE_FRAME} {dict(zip(names, z['kernels_seen'].T.tolist()))}")
+        worst = 0.0
+        for i, (tel_b, Tcw_b) in enumerate(batched["steps"]):
+            tel, Tcw = z[f"['out{i}'].telemetry"], z[f"['out{i}'].Tcw"]
+            require(bool(tel[:, T.TEL_TRACKED].all()), f"mesh: a sequence lost frame {i}")
+            require(np.array_equal(tel, tel_b), f"mesh: frame {i}'s telemetry differs from the batched run's")
+            worst = max(worst, float(np.abs(Tcw - Tcw_b).max()))
+        require(worst == 0.0, f"mesh: poses differ from the batched run's by up to {worst:.2e}")
+        apart = [f for f, w in batched["chain0"].items()
+                 if not np.array_equal(z[f"['chain0'].{f}"], w, equal_nan=w.dtype.kind == "f")]
+        require(not apart, f"mesh: the chain differs from the batched run's first chain in {apart}")
+        places = {k[len("placement['chain0']."):]: str(v) for k, v in z.items() if k.startswith("placement['chain0'].")}
+        bad = [f for f, p in places.items()
+               if p != ("Shard(dim=0),Shard(dim=1)" if f.startswith("pt_") else "Shard(dim=0),Replicate()")]
+        require(places and not bad, f"mesh: map fields not at rest in the reference's placements: {bad}")
+        log(f"the {MESH_FRAMES} sharded steps equal the batched phase's steps without the mapper and the chain its "
+            "first chain, bit for bit; every pt_* field at rest on (Shard(0), Shard(1)), every other on "
+            "(Shard(0), Replicate())")
+        # the frames are built on every lm rank of a seq group (Replicate)
+        B, steps = len(BATCH_SEEDS), MESH_FRAMES - 1
+        for k, run_n, frame_n in (("fast_blur_stack", B * MESH_FRAMES * lm, B * lm),
+                                  ("gather_patches", B * MESH_FRAMES * lm, B * lm),
+                                  ("pose_lm", 2 * steps * MESH_RANKS, 2 * MESH_RANKS)):
+            require(launches[k] == run_n and seen[k] == frame_n,
+                    f"mesh: {k} launched {launches[k]} times (expected {run_n}), the profiler saw {seen[k]} on the "
+                    f"card during frame {MESH_PROFILE_FRAME} (expected {frame_n})")
+        log(f"B1 and B2 once per local sequence per frame on every rank ({B} x {MESH_FRAMES} x lm {lm}), B3 twice "
+            f"per tracked step on every rank; the profiler saw frame {MESH_PROFILE_FRAME}'s on the card")
     return launches
 
 
 def run_loop():
     """The loop phase (see the module docstring). -> kernel launches of the
-    TUM2 loop-on run."""
-    import torch
-
-    from plslam_tpu_torch import load_settings
+    fixture's loop-on run."""
     from plslam_tpu_torch.io.synthetic import SyntheticSequence
 
     with Phase("loop"):
@@ -1624,41 +1699,7 @@ def run_loop():
         require(on["closure"] is not None, "the loop fixture closed no loop")
         _closure_checks("loop fixture", seq.settings, on)
         require(all(checks.values()), "the loop fixture fails tests/test_loop_e2e.py's assertions")
-
-        tum2 = load_settings(ROOT / "configs" / "TUM2.yaml")
-        require(tum2.use_loop_closing and tum2.use_lines, "TUM2 should run lines and loop closing")
-        tseq = SyntheticSequence(n_frames=TUM2_FRAMES, seed=0, settings=tum2, trajectory="loop", depth_noise=0.03)
-        frames = [tseq.frame(i) for i in range(tseq.n_frames)]
-        toff = _loop_run("TUM2", tum2, tseq, frames, TUM2_REVISIT, False)
-        ton = _loop_run("TUM2", tum2, tseq, frames, TUM2_REVISIT, True)
-        require(ton["n_tracked"] == toff["n_tracked"] == TUM2_FRAMES, "TUM2: a frame was not tracked")
-        require(ton["queue_left"] == 0, "TUM2: the global-BA queue did not drain")
-        if ton["loops"]:
-            require(ton["gap"] < toff["gap"], "TUM2: the loop-on gap is not below the loop-off gap")
-        else:
-            # On this circuit at 640x480 the revisit stays covisible with the
-            # start (the wider field of view), so the map reconnects through
-            # tracking and detection proposes no candidate; the reference
-            # closes none either (PERF.md, §6). Without a closure loop
-            # closing changes nothing: the two runs must be the same. Then
-            # the full-width closure path is driven directly: the run's last
-            # keyframe, which views the start again, closed onto keyframe 0,
-            # and the global-BA queue it leaves run to its end.
-            require(ton["ate"] == toff["ate"] and ton["gap"] == toff["gap"],
-                    "TUM2: without a closure the loop-on run differs from the loop-off run")
-            slam = ton["slam"]
-            loop = slam._loop
-            k_last = slam._chain_meta[0]
-            slam.state, closed = loop.close_loop(slam.state, k_last, 0)
-            require(closed, f"TUM2: keyframe {k_last} does not close onto keyframe 0")
-            while loop.gba_queue:
-                slam.state = loop.pump_gba(slam.state)
-            require(bool(torch.isfinite(slam.state.m.kf_pose).all()), "TUM2: non-finite poses after the closure")
-        log(f"TUM2: closure {'in the run' if ton['loops'] else 'driven after the run'} at frame "
-            f"{ton['closure']['frame']}, keyframe {ton['closure']['k']} onto {ton['closure']['cand']}, "
-            f"{ton['closures_ms']} ms (last_closure_ms); global-BA slices {[round(v, 3) for v in ton['slice_ms']]} ms")
-        _closure_checks("TUM2", tum2, ton)
-    return ton["launches"]
+    return on["launches"]
 
 
 def main() -> int:
@@ -1685,7 +1726,8 @@ def main() -> int:
             capture_output=True, text=True, timeout=60,
         )
         require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-        log(smi.stdout.strip().splitlines()[0])  # "<name>, <power limit>", as nvidia-smi gives them
+        card_line = smi.stdout.strip().splitlines()[0]  # "<name>, <power limit>", as nvidia-smi gives them
+        log(card_line)
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
@@ -1946,19 +1988,21 @@ def main() -> int:
     run_low_texture()
     run_host_lines()
     run_vocab()
-    # the kernels line counts the launches of this slice's path, the batched
-    # one (B4 from the fast phase: it is not on the step)
-    for name, n in run_batched().items():
-        kernels[name]["launches"] = n
+    # the kernels line counts the launches of this slice's path, the mesh
+    # (B4 from the fast phase: it is not on the step)
+    batched_launches, batched = run_batched()
+    log(f"kernel launches during the batched run: {batched_launches}")
     pipe_launches = run_pipelined(lines_settings)
     log(f"kernel launches during the first pipelined run: {pipe_launches}")
     loop_launches = run_loop()
-    log(f"kernel launches during the TUM2 loop-on run: {loop_launches}")
+    log(f"kernel launches during the loop fixture's loop-on run: {loop_launches}")
+    for name, n in run_mesh(batched).items():
+        kernels[name]["launches"] = n
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]
     total = time.perf_counter() - t_start
-    log(f"total {total:.1f} s (budget {BUDGET_S:.0f} s)")
+    log(f"total {total:.1f} s (budget {BUDGET_S:.0f} s) on {card_line}")
     require(total <= BUDGET_S, "over the wall-clock budget")
     names = ["fast_blur_stack", "gather_patches", "pose_lm", "fast_scores"]  # B1-B4
     require(sorted(names) == sorted(kernels), "a kernel is missing from the run")

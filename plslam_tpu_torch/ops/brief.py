@@ -69,5 +69,6 @@ def unpack_bits_pm1(desc):
     """u8[..., 32] -> +-1 float32 [..., 256]: dot(a, b) = 256 - 2 hamming.
     float32 products of +-1 sum exactly (integers below 2^24)."""
     shifts = torch.arange(8, device=desc.device, dtype=torch.uint8)
-    bits = (desc[..., :, None] >> shifts) & 1
+    # not `>>`: DTensor's __rshift__ drops the broadcast of a size-1 axis
+    bits = torch.bitwise_right_shift(desc[..., :, None], shifts) & 1
     return (bits.to(torch.float32) * 2 - 1).reshape(desc.shape[:-1] + (N_BITS,))

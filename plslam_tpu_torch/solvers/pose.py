@@ -372,6 +372,15 @@ def _pose_solve_cuda(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d
     return _no_lines(*pose_lm(Tcw0, pts, _K_host(fx, fy, cx, cy), bf, lines), Tcw0.shape[0])
 
 
+@_pose_solve.register_fake
+def _pose_solve_fake(Tcw0, xw, obs, inv_sigma2, is_stereo, valid, sw, ew, line2d, inv_sigma2_l, valid_l,
+                     fx, fy, cx, cy, bf):
+    """Output shapes and dtypes (DTensor's sharding propagation reads them)."""
+    P, L = Tcw0.shape[0], 0 if sw is None else sw.shape[1]
+    return (Tcw0.new_empty((P, 4, 4)), valid.new_empty((P, xw.shape[1]), dtype=torch.bool),
+            valid.new_empty((P, L), dtype=torch.bool))
+
+
 def _pose_solve_vmap(info, in_dims, *args):
     """torch.func.vmap rule: the B sequences' P problems each become B*P
     problems on the problem axis, solved in launches of at most

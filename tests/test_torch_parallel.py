@@ -294,12 +294,6 @@ def test_batched_loop_detector_equals_solo_gate(chain):
     assert not bool(has_any.any())
 
 
-@pytest.mark.parametrize("cls", [BatchedTracker, BatchedMapper, BatchedLoopDetector])
-def test_mesh_raises(cls):
-    with pytest.raises(NotImplementedError):
-        cls(None, *([1] if cls is BatchedTracker else []), mesh=object())
-
-
 def test_init_state_is_stacked(run):
     st = run["bt"].init_state()
     one = run["tracker"].init_state()
