@@ -868,7 +868,7 @@ def run_pipelined(settings):
         frame = slam.builder(*inputs[-1][:2])
         for what, fn in (("init branch", lambda: tr._do_init(st, frame)),
                          ("working-set scan", lambda: tr._compute_local_set(st.m, st.ref_kf))):
-            n_launch = _profiled(fn)[2]
+            n_launch = _profiled(fn, attempts=3)[2]
             log(f"{what}: {n_launch} kernel launches, {cuda_ms(torch, fn):.4f} ms on the card")
 
         # the other depths on the first 12 frames: the same contract
@@ -1019,21 +1019,29 @@ def _loop_run(name, settings, seq, frames, revisit, use_loop):
     return out
 
 
-def _profiled(fn):
+def _profiled(fn, attempts=1):
     """fn() under torch.profiler -> (result, wall ms, kernel launches,
-    copies, device-busy ms)."""
+    copies, device-busy ms). A profile in which the profiler delivered no
+    device event is taken again, up to `attempts` in all: that happens now
+    and then to a profile of a dozen launches after the process's earlier
+    profiles (PERF.md §7). Pass attempts > 1 only for an fn without side
+    effects."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from plslam_tpu_torch.eval.profile_step import _busy_us
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+        log(f"profile {attempt} of {attempts}: the profiler delivered no device event")
     require(bool(on_card), "the profiler recorded no device activity")
     copies = [e for e in on_card if e.name.startswith(("Memcpy", "Memset"))]
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in on_card]) / 1e3

@@ -31,13 +31,18 @@ global-BA slice from the closed map (the chi2 gate, the plain phase and
 the erase sweep): indices equal, poses within 1e-4, points within 1e-3 (LM on
 a 420-point map in float32, sums in another order).
 
-Cost: ~100 s on one core with a cold JAX cache, nearly all of it XLA
-compiling the reference pieces (each jitted once, at the shapes of the
-closure), ~40 s with the cache warm."""
+The reference's gate over keyframes 10-12, its closure of keyframe 12 and
+its global-BA slice are recorded: tests/data/loopclosing_reference.npz,
+written by tests/data/make_loopclosing_reference.py from the constructed
+map (the fixture checks its SHA-256 first; compiling them took ~45 s of
+every suite run). The reference's solvers (RANSAC, OptimizeSim3, the
+essential graph) and the Sim3 group run live, each jitted once at the
+closure's shapes."""
 
 import dataclasses
 import functools
 import json
+import types
 
 import numpy as np
 import pytest
@@ -47,6 +52,7 @@ import jax
 import jax.numpy as jnp
 
 import plslam_tpu.constants as JC
+import reference_runs
 from plslam_tpu.config import Settings as JSettings
 from plslam_tpu.geometry import se3 as jse3
 from plslam_tpu.geometry import sim3 as jsim3
@@ -54,7 +60,6 @@ from plslam_tpu.pipeline.loopclosing import LoopCloser as JLoopCloser
 from plslam_tpu.pipeline.tracking import Tracker as JTracker
 from plslam_tpu.slammap.state import empty_map as jempty_map
 from plslam_tpu.solvers import pose_graph as jpg
-from plslam_tpu.solvers.local_ba import LocalBA as JLocalBA
 import plslam_tpu_torch.constants as PC
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.config import Settings
@@ -78,8 +83,11 @@ MAP_EXACT = ("kf_valid", "kf_lm_idx", "kf_ln_idx", "pt_valid", "pt_replaced", "p
 T = lambda a: torch.from_numpy(np.array(a))  # noqa: E731  (a writable copy)
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(np.array, tree)
+@functools.cache
+def _ref_loop():
+    """The reference's LoopCloser at the fixture's capacities, for its
+    solvers."""
+    return JLoopCloser(JTracker(JSettings(**CAM), **CAPS))
 
 
 @functools.cache
@@ -203,39 +211,35 @@ def _build_map(rng):
     return {k: np.asarray(v, dtypes[k]) for k, v in m.items()}
 
 
+def _world_map():
+    return _build_map(np.random.default_rng(7))
+
+
 @pytest.fixture(scope="module")
 def world():
     """Both packages' loop closers on the constructed map; the reference's
     gate over keyframes 10-12, its closure of 12, and one global-BA slice
-    from the closed map."""
+    from the closed map (recorded: tests/data/make_loopclosing_reference.py)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(JC, "ESSENTIAL_GRAPH_ITERS", EG_ITERS)
     mp.setattr(PC, "ESSENTIAL_GRAPH_ITERS", EG_ITERS)
-    m = _build_map(np.random.default_rng(7))
-    jtr = JTracker(JSettings(**CAM), **CAPS)
-    jloop = JLoopCloser(jtr)
+    m = _world_map()
+    z = reference_runs.load("loopclosing", reference_runs.inputs_sha256(*reference_runs.flat("m", m).values()))
     tr = Tracker(Settings(**CAM), device="cpu", **CAPS)
     loop = LoopCloser(tr)
-    jm = jax.tree_util.tree_map(jnp.asarray, jtr.init_state().m._replace(**m))
-    for k in range(N_KF):
-        jloop.observe_keyframe(jm, k)
-    kf_bow = np.array(jloop.kf_bow)
-    gate = jax.jit(jloop._detect_gate_impl)
-    g_mask, g_consist = jnp.zeros_like(jloop._g_mask), jnp.zeros_like(jloop._g_consist)
-    gates = []
-    for k in LOOP_KFS:
-        out = gate(jnp.asarray(kf_bow), jm, k, g_mask, g_consist)
-        gates.append(dict(k=k, g_in=(np.array(g_mask), np.array(g_consist)), out=_np(out)))
-        g_mask, g_consist = out[3], out[4]
+    kf_bow = z["kf_bow"]
+    gates = [dict(k=int(k), g_in=(z[f"gate{j}.g_mask"], z[f"gate{j}.g_consist"]),
+                  out=[z[f"gate{j}.out{i}"] for i in range(5)]) for j, k in enumerate(z["gate_kfs"])]
     enough, scores = gates[-1]["out"][1], gates[-1]["out"][2]
     cands = sorted(np.where(enough)[0].tolist(), key=lambda c: -scores[c])
-    jstate = jtr.init_state()._replace(m=jm)
-    jclosed_state, jclosed = jloop.close_loop(jstate, CLOSE_K, cands[0])
-    jmc = _np(jclosed_state.m)._asdict()
-    jgba = JLocalBA(jtr, global_mode=True)
-    slice_m = _np(jgba.slice_runner(0, 2, True)(jclosed_state.m, jnp.int32(CLOSE_K)))._asdict()
-    yield dict(m=m, kf_bow=kf_bow, gates=gates, cands=cands, jtr=jtr, jloop=jloop, tr=tr, loop=loop,
-               jstate=_np(jstate), jclosed=jclosed, jclosed_state=_np(jclosed_state), jmc=jmc, slice_m=slice_m)
+    jclosed_state = reference_runs.tree(z, "closed_state")
+    jloop = types.SimpleNamespace(  # the reference's LoopCloser after the closure
+        n_loops_closed=int(z["loop.n_loops_closed"]), _loop_edges=[tuple(e) for e in z["loop.loop_edges"].tolist()],
+        gba_queue=[(int(a), int(b), bool(e)) for a, b, e in z["loop.gba_queue"].tolist()],
+        _gba_k=int(z["loop.gba_k"]), _kf_counter=int(z["loop.kf_counter"]), last_loop_kfn=int(z["loop.last_loop_kfn"]))
+    yield dict(m=m, kf_bow=kf_bow, gates=gates, cands=cands, jloop=jloop, tr=tr, loop=loop,
+               jstate=reference_runs.tree(z, "state"), jclosed=bool(z["closed"]), jclosed_state=jclosed_state,
+               jmc=jclosed_state.m._asdict(), slice_m=reference_runs.tree(z, "slice_m")._asdict())
     mp.undo()
 
 
@@ -300,7 +304,7 @@ def _rigid_problem(tr, n=256, n_used=80):
 
 
 def test_solve_sim3_ransac_matches_reference(world):
-    jloop, tr = world["jloop"], world["tr"]
+    jloop, tr = _ref_loop(), world["tr"]
     pb = _rigid_problem(tr)
     I4 = np.eye(4, dtype=np.float32)
     ref = jloop._sim3(jnp.asarray(pb["x1"]), jnp.asarray(pb["x2"]), jnp.asarray(pb["valid"]), jnp.asarray(I4),
@@ -317,7 +321,7 @@ def test_solve_sim3_ransac_matches_reference(world):
 
 
 def test_optimize_sim3_matches_reference(world):
-    jloop, tr = world["jloop"], world["tr"]
+    jloop, tr = _ref_loop(), world["tr"]
     pb = _rigid_problem(tr)
     R0 = pb["T12"][:3, :3].astype(np.float32)
     t0 = (pb["T12"][:3, 3] + 0.02).astype(np.float32)  # a start the LM has to correct
@@ -337,7 +341,7 @@ def test_essential_graph_and_landmarks_match_reference(world):
     """tests/test_loopclosing.py's drift problem (a 12-keyframe chain, a true
     loop edge from the last to the first), padded to the map's 16 slots
     with invalid nodes; then the landmarks follow their keyframes."""
-    jloop = world["jloop"]
+    jloop = _ref_loop()
     K, Kv = CAPS["max_kf"], 12
     true_step = np.asarray(jse3.exp(jnp.asarray([0.1, 0, 0, 0, 0.02, 0], dtype=jnp.float32)))
     drift_step = np.asarray(jse3.exp(jnp.asarray([0.105, 0.004, 0.002, 0, 0.023, 0.001], dtype=jnp.float32)))

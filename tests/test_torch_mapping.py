@@ -2,9 +2,13 @@
 with the local mapper on (JAX, CPU) against the port's (PyTorch, CPU) on
 one run, 320x240, `SyntheticSequence(seed=3)` with lines on, 3 frames
 (each a keyframe: three chains, the second triangulating map lines), caps `max_kf=32,
-max_pts=4096`, loop closing off. The reference run is the module's one
-compile of the fused step and of the chain; it records the state before
-and after each chain by wrapping the instance's `_dispatch_kf_chain`.
+max_pts=4096`, loop closing off. The reference's run is recorded:
+tests/data/mapping_reference.npz, written by
+tests/data/make_mapping_reference.py from these frames (the fixture
+checks their SHA-256 first; the live run compiled the fused step and the
+chain, ~165 s of every suite run). It records the state before and after
+each chain by wrapping the instance's `_dispatch_kf_chain`, and the same
+compiled chain's output on the constructed pair of keyframes below.
 
 Tolerances, and what they rest on. Both systems get the port's frames
 (`io/synthetic.py`: the reference's frames to 9.2e-5 gray levels). The
@@ -47,7 +51,7 @@ rng inputs; LocalMapper's point triangulation on the reference's own
 keyframe pair (tests/test_triangulate.py: created points, slots and rows
 equal, positions and distance bands to 1e-3 relative, normals to 1e-4);
 the whole chain with lines off on such a pair, against the run's own
-compiled reference chain; keyframe culling and capacity eviction on a map built
+compiled reference chain (recorded with the run); keyframe culling and capacity eviction on a map built
 for their rules (every field equal); and `_rebase_aux` / `_apply_rebase`
 on a map with a culled keyframe (equal; transforms to 1e-5). Local BA's
 own properties are checked on the port's map as tests/test_local_ba.py
@@ -55,7 +59,7 @@ checks the reference's.
 
 The file keeps more than 7 tests on purpose: pytest-xdist's loadfile
 schedule orders files by test count, so it starts with the first six,
-before tests/test_loop_e2e.py (7 tests); run after it, its reference run
+before tests/test_loop_e2e.py (7 tests); run after it, its port runs
 would compete for the cores with that file, which alone sets the suite's
 wall time."""
 
@@ -69,9 +73,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import reference_runs
 from plslam_tpu.geometry import camera as jcamera
 from plslam_tpu.geometry import se3 as jse3
-from plslam_tpu.io.synthetic import SyntheticSequence as JSyntheticSequence
 from plslam_tpu.slammap.state import empty_map as jempty_map
 from plslam_tpu.solvers import triangulate as jtri
 from plslam_tpu.system import System as JSystem
@@ -111,67 +115,50 @@ def _np(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
+def _sequence():
+    return SyntheticSequence(n_frames=N_FRAMES, height=240, width=320, seed=3)
+
+
+def _inputs(seq):
+    return [seq.frame(i) for i in range(N_FRAMES)]
+
+
+def _row(slam, Tcw):
+    """What the tests read of a System after one track_rgbd."""
+    m = slam.state.m
+    return dict(Tcw=Tcw, state=slam.get_tracking_state(), new_kf=slam.last_frame_was_kf, ref_kf=int(slam.state.ref_kf),
+                n_kf=int(m.n_kf), n_pt=int(m.n_pt), n_ln=int(m.n_ln))
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mapping")
-    seq = SyntheticSequence(n_frames=N_FRAMES, height=240, width=320, seed=3)
-    jseq = JSyntheticSequence(n_frames=N_FRAMES, height=240, width=320, seed=3)
+    seq = _sequence()
     assert seq.settings.use_lines
-    inputs = [seq.frame(i) for i in range(N_FRAMES)]
+    inputs = _inputs(seq)
 
-    ref = JSystem(jseq.settings, use_loop_closing=False, **CAPS)
-    chains = []
-    dispatch = ref._dispatch_kf_chain
-
-    def snapshot():
-        """The state, the BoW rows and the host bookkeeping, as
-        convert.system_from_numpy takes them."""
-        return dict(state=_np(ref.state), kf_bow=np.array(ref._reloc.kf_bow), timestamps=list(ref._timestamps),
-                    rel_poses=[r.copy() for r in ref._rel_poses], ref_ids=list(ref._ref_ids),
-                    tracked=list(ref._tracked), kf_timestamps=dict(ref._kf_timestamps),
-                    last_status=ref._last_status, recent_rebase=dict(ref._recent_rebase))
-
-    def recorded(kf_id):
-        pre = snapshot()
-        dispatch(kf_id)
-        ref._process_chain_results(block=True)  # what the synchronous System does next
-        chains.append(dict(kf_id=int(kf_id), pre=pre, post=snapshot()))
-
-    ref._dispatch_kf_chain = recorded
-
-    def drive(slam, typed):
-        rows = []
-        for g, d, t in inputs:
-            if typed:
-                # one typing of `status` keeps the fused step to one
-                # compile (the step leaves it weakly typed; the value is
-                # unchanged)
-                slam.state = slam.state._replace(status=jnp.asarray(int(slam.state.status)))
-            Tcw = slam.track_rgbd(g, d, t)
-            m = slam.state.m
-            rows.append(dict(Tcw=Tcw, state=slam.get_tracking_state(), new_kf=slam.last_frame_was_kf,
-                             ref_kf=int(slam.state.ref_kf), n_kf=int(m.n_kf), n_pt=int(m.n_pt), n_ln=int(m.n_ln)))
-        return rows
-
-    ref_rows = drive(ref, True)
-    ref.save_trajectory_tum(tmp / "ref_traj.txt")
+    # the reference's run (tests/data/make_mapping_reference.py)
+    z = reference_runs.load("mapping", reference_runs.frames_sha256(inputs))
+    chains = [dict(kf_id=int(k), pre=reference_runs.system(z, f"chain{i}.pre"),
+                   post=reference_runs.system(z, f"chain{i}.post")) for i, k in enumerate(z["chain_kf_ids"])]
+    ref_rows = reference_runs.rows(z, "rows")
+    (tmp / "ref_traj.txt").write_bytes(z["traj"].tobytes())
+    caps = dict(zip(("max_kf", "max_feat", "max_lines", "max_pts", "max_maplines"), z["tracker.caps"].tolist()))
+    # the reference tracker's constants, for the constructed pair
+    ref_tracker = types.SimpleNamespace(K=z["tracker.K"], **caps,
+                                        init_state=lambda: types.SimpleNamespace(m=jempty_map(**caps)))
 
     def ref_chain(m, k):
         """The run's compiled reference chain on map m (numpy leaves), the
-        rest of the state as the run left it -> the map after it."""
-        saved = ref.state, ref._reloc.kf_bow
-        ref.state = ref.state._replace(m=jax.tree_util.tree_map(jnp.asarray, m))
-        dispatch(k)
-        ref._process_chain_results(block=True)
-        out = _np(ref.state.m)
-        ref.state, ref._reloc.kf_bow = saved
-        return out
+        rest of the state as the run left it -> the map after it: recorded
+        for the one map the tests give it."""
+        return reference_runs.call(z, "pair", dict(m=m, k=k))
 
     got = System(seq.settings, use_loop_closing=False, device="cpu", **CAPS)
-    got_rows = drive(got, False)
+    got_rows = [_row(got, got.track_rgbd(g, d, t)) for g, d, t in inputs]
     got.save_trajectory_tum(tmp / "got_traj.txt")
     return dict(tmp=tmp, settings=seq.settings, ref=ref_rows, got=got_rows, chains=chains, got_sys=got,
-                ref_tracker=ref.tracker, ref_chain=ref_chain)
+                ref_tracker=ref_tracker, ref_chain=ref_chain)
 
 
 def _numpy_map(m):
@@ -361,24 +348,17 @@ def test_triangulation_stage_matches_reference(rng):
 
 
 # ---------------------------------- point-only chain, culling, eviction
-def test_chain_without_lines_matches_reference(run):
-    """`process` on the mapper of a System whose settings have lines off
-    (the branch `System(load_settings("configs/TUM1.yaml"))` takes), on
-    two constructed keyframes 30 cm apart, the second's pose 1 cm off: 30
-    shared landmarks with their positions, normals and distance bands, and
-    90 depthless far points seen by both, which the chain triangulates
-    before local BA moves them and the second pose.
-    The reference is the run's own compiled chain (lines on): on a map
-    without lines its line stages change nothing. Every
-    index, flag and count equal; poses and positions to the chain
-    tolerances above (measured: 90 points created, the second pose moved
-    9.3 mm; poses within 8.6e-6, positions within 0.13 mm)."""
-    from plslam_tpu_torch.pipeline.mapping import LocalMapper
+# the constructed pair of test_chain_without_lines_matches_reference: the
+# landmarks both keyframes already share
+PAIR_SHARED = 30
 
-    jtr = run["ref_tracker"]
+
+def _pair_without_lines(jtr):
+    """Two constructed keyframes 30 cm apart for the reference tracker's
+    caps (numpy leaves), and the second's pose as tracking left it."""
     K = np.asarray(jtr.K)
     rng = np.random.default_rng(11)
-    n, shared = 120, 30
+    n, shared = 120, PAIR_SHARED
     z = rng.uniform(6, 12, n)
     pw = np.c_[z * rng.uniform(-0.25, 0.25, n), z * rng.uniform(-0.18, 0.18, n), z].astype(np.float32)
     desc = rng.integers(0, 256, (n, 32)).astype(np.uint8)
@@ -400,6 +380,26 @@ def test_chain_without_lines_matches_reference(run):
     m.pt_dist[:shared] = np.stack([0.5 * d, 2.0 * d], -1)
     m.pt_nobs[:shared], m.pt_visible[:shared], m.pt_found[:shared] = 2, 2.0, 2.0
     m = m._replace(n_kf=np.int32(2), n_pt=np.int32(shared), next_kf_seq=np.int32(2))
+    return m, T_est
+
+
+def test_chain_without_lines_matches_reference(run):
+    """`process` on the mapper of a System whose settings have lines off
+    (the branch `System(load_settings("configs/TUM1.yaml"))` takes), on
+    two constructed keyframes 30 cm apart, the second's pose 1 cm off: 30
+    shared landmarks with their positions, normals and distance bands, and
+    90 depthless far points seen by both, which the chain triangulates
+    before local BA moves them and the second pose.
+    The reference is the run's own compiled chain (lines on): on a map
+    without lines its line stages change nothing. Every
+    index, flag and count equal; poses and positions to the chain
+    tolerances above (measured: 90 points created, the second pose moved
+    9.3 mm; poses within 8.6e-6, positions within 0.13 mm)."""
+    from plslam_tpu_torch.pipeline.mapping import LocalMapper
+
+    jtr = run["ref_tracker"]
+    shared = PAIR_SHARED
+    m, T_est = _pair_without_lines(jtr)
 
     want = run["ref_chain"](m, 1)
     settings = dataclasses.replace(run["settings"], use_lines=False)

@@ -10,11 +10,15 @@ port's FrameBuilder.
 Tolerances:
   * a batched row against the port's solo step on that sequence: flags
     equal, poses within 1e-4 m (observed: equal);
-  * against the reference's BatchedTracker(mesh=None) (JAX, CPU; the
-    file's one reference run) on the same gray and depth: flags equal,
-    poses within 1e-3 m (the two front ends agree to float32 rounding, as
-    in tests/test_torch_slice_lines.py); from the reference's batched state
-    and frame carried across (`convert`), the next step within 1e-4 m;
+  * against the reference's BatchedTracker(mesh=None) (JAX, CPU) on the
+    same gray and depth: flags equal, poses within 1e-3 m (the two front
+    ends agree to float32 rounding, as in tests/test_torch_slice_lines.py);
+    from the reference's batched state and frame carried across
+    (`convert`), the next step within 1e-4 m. The reference's run is
+    recorded: tests/data/parallel_reference.npz, written by
+    tests/data/make_parallel_reference.py from these frames (the fixture
+    checks their SHA-256 first; the live compile of the vmapped step took
+    ~120 s of every suite run);
   * B3's vmap rule: exactly the per-problem calls;
   * the batched chain against the solo chain, open loop from the same two
     pre-chain maps: every index and flag equal, floats within rtol 1e-3 /
@@ -35,12 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from plslam_tpu.features.frame import FrameBuilder as JFrameBuilder
-from plslam_tpu.parallel.batch import BatchedTracker as JBatchedTracker
-from plslam_tpu.pipeline.tracking import Tracker as JTracker
+import reference_runs
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.features.frame import FrameBuilder
 from plslam_tpu_torch.io.synthetic import SyntheticSequence, pose_problem_pair
@@ -62,6 +61,15 @@ def _settings(seq):
     return dataclasses.replace(seq.settings, n_features=120)
 
 
+def _sequences():
+    return [SyntheticSequence(n_frames=N_FRAMES, height=H, width=W, seed=s) for s in SEEDS]
+
+
+def _inputs(seqs):
+    """[frame][sequence] (gray, depth)."""
+    return [[q.frame(i)[:2] for q in seqs] for i in range(N_FRAMES)]
+
+
 def _solo(tracker, frames):
     st, outs = tracker.init_state(), []
     for f in frames:
@@ -81,9 +89,15 @@ def _batched(bt, frames, initialised):
 
 @pytest.fixture(scope="module")
 def run():
-    seqs = [SyntheticSequence(n_frames=N_FRAMES, height=H, width=W, seed=s) for s in SEEDS]
+    seqs = _sequences()
     s = _settings(seqs[0])
-    inputs = [[q.frame(i)[:2] for q in seqs] for i in range(N_FRAMES)]
+    inputs = _inputs(seqs)
+    # the reference's BatchedTracker on the same gray and depth, its first
+    # N_STEP steps (tests/data/make_parallel_reference.py): each step's
+    # output, and its state and frame before step 2
+    z = reference_runs.load("parallel", reference_runs.frames_sha256([gd for row in inputs[:N_STEP] for gd in row]))
+    ref = [reference_runs.tree(z, f"out{i}") for i in range(N_STEP)]
+    jstates, jframes = {2: reference_runs.tree(z, "state")}, {2: reference_runs.tree(z, "frame")}
     fb = FrameBuilder(s, capacity=128, line_capacity=16, device="cpu")
     tracker = tracking.Tracker(s, device="cpu", **CAPS)
     frames = [[fb(g, d) for g, d in row] for row in inputs]
@@ -100,32 +114,9 @@ def run():
         mixed_frames = [[frames[0][0], black]] + frames[1:N_STEP]
         mixed_solo = [solo[0], _solo(tracker, [mixed_frames[i][1] for i in range(N_STEP)])]
         _, mixed = _batched(bt, mixed_frames, lambda i, st: False if i == 0 else None)
-
-    # the reference's BatchedTracker on the same gray and depth
-    js = _jsettings(s)
-    jb = JFrameBuilder(js, capacity=128, line_capacity=16)
-    jt = JTracker(js, **CAPS)
-    jbt = JBatchedTracker(jt, batch=len(SEEDS))
-    jst = jax.tree.map(np.asarray, jbt.init_state())
-    ref, jstates, jframes = [], [], []
-    for row in inputs[:N_STEP]:
-        jf = jax.tree.map(lambda *xs: jnp.stack(xs), *[jb(jnp.asarray(g), jnp.asarray(d)) for g, d in row])
-        jstates.append(jst)
-        jframes.append(jax.tree.map(np.asarray, jf))
-        # numpy in, numpy out: every step sees the same (strong) types, so
-        # the vmapped step compiles once
-        jst, jo = jbt.step(jax.tree.map(jnp.asarray, jst), jf)
-        jst, jo = jax.tree.map(np.asarray, jst), jax.tree.map(np.asarray, jo)
-        ref.append(jo)
     return dict(s=s, seqs=seqs, fb=fb, tracker=tracker, bt=bt, frames=frames, solo=solo, known=known,
                 unknown=unknown, mixed=mixed, mixed_solo=mixed_solo, ref=ref, jstates=jstates, jframes=jframes,
                 caught=caught)
-
-
-def _jsettings(s):
-    from plslam_tpu.config import Settings as JSettings
-
-    return JSettings(**dataclasses.asdict(s))
 
 
 def _rows_equal_solo(outs, solo, tol):

@@ -7,11 +7,13 @@ are dispatched when those frames are finalized, 4 calls later, and on
 frame 6, finalized by the closing save. Both systems get the port's frames
 (`io/synthetic.py`).
 
-The reference's chunk program is swapped, in a test-side subclass, for
-four calls of its own per-frame program `_fused_step` with the state
-carried through. That is the program tests/test_e2e.py and
-tests/test_torch_mapping.py already compile (one compile of the chunk
-program would take longer than this whole file), and the reference's
+The reference's run is recorded: tests/data/pipelined_reference.npz,
+written by tests/data/make_pipelined_reference.py from these frames (the
+fixture checks their SHA-256 first; its live compile and run took ~180 s
+of every suite run). There the reference's chunk program is swapped, in
+a generator-side subclass, for four calls of its own per-frame program
+`_fused_step` with the state carried through (one compile of the chunk
+program would take longer than the whole run), and the reference's
 docstrings (plslam_tpu/system.py:92-95, :278-282) state that the chunk
 gives results identical to per-frame dispatch. Everything around it, the
 buffer, the in-flight queue, the lagged finalize and the chain tails, is
@@ -34,23 +36,23 @@ writes one with `System.save_map` and reads one with `load_state`, both
 plain numpy.
 
 The file keeps more than 7 tests: pytest-xdist's loadfile schedule starts
-files with more tests first, so its reference run does not compete for
-the cores with tests/test_loop_e2e.py (7 tests), which alone sets the
-suite's wall time."""
+files with more tests first, so its port runs do not compete for the
+cores with tests/test_loop_e2e.py (7 tests), which alone sets the suite's
+wall time."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
+import reference_runs
 from plslam_tpu.io.snapshot import load_state as j_load_state
 from plslam_tpu.io.synthetic import SyntheticSequence as JSyntheticSequence
 from plslam_tpu.pipeline.tracking import Tracker as JTracker
-from plslam_tpu.system import System as JSystem
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.features.frame import FrameBuilder
 from plslam_tpu_torch.io import snapshot
@@ -80,32 +82,27 @@ def _leaves(ts, prefix=""):
     return snapshot._flatten(prefix, ts)
 
 
-class _RefPipelined(JSystem):
-    """The reference System with its chunk program as K calls of its
-    per-frame program (see the module docstring), recording each
-    finalized frame's telemetry row."""
+def _sequence():
+    """The run's sequence; its first N_FRAMES frames are the run, the next 3
+    the localization replay's."""
+    return SyntheticSequence(n_frames=N_FRAMES + 3, height=240, width=320, seed=3)
 
-    @property
-    def _fused_chunk(self):
-        def chunk(state, grays, depths, ln_sp, ln_ep, ln_valid):
-            tels = []
-            for i in range(self.pipeline_depth):
-                # one typing of `status` keeps the per-frame program to one
-                # compile (the step leaves it weakly typed; the value is
-                # unchanged)
-                state = state._replace(status=jnp.asarray(int(state.status)))
-                state, out, _ = self._fused_step(state, grays[i], depths[i], ln_sp, ln_ep, ln_valid)
-                tels.append(out.telemetry)
-            return state, jnp.stack(tels)
 
-        return chunk
+def _inputs(seq):
+    return [seq.frame(i) for i in range(N_FRAMES)]
 
-    def _finalize_one(self):
-        telc, idx = self._inflight[0][:2]
-        row = np.array(telc.row(idx))
-        ret = super()._finalize_one()
-        self.rows.append(dict(call=self.call, t=self._timestamps[-1], v=row, ret=ret))
-        return ret
+
+def _recorded(inputs, map_path):
+    """The reference's run on `inputs` (tests/data/make_pipelined_reference.py),
+    with the attributes of its System that the tests read; writes the
+    snapshot its save_map wrote to map_path."""
+    z = reference_runs.load("pipelined", reference_runs.frames_sha256(inputs))
+    np.savez_compressed(map_path, **{k[len("snapshot."):]: v for k, v in z.items() if k.startswith("snapshot.")})
+    return types.SimpleNamespace(
+        rows=reference_runs.rows(z, "rows"), tracked_flags=z["tracked_flags"].tolist(),
+        n_keyframes=int(z["n_keyframes"]), state=reference_runs.tree(z, "state"),
+        _reloc=types.SimpleNamespace(kf_bow=z["kf_bow"]),
+        _kf_timestamps=dict(zip(z["kf_timestamps.slot"].tolist(), z["kf_timestamps.t"].tolist())))
 
 
 class _Pipelined(System):
@@ -139,20 +136,16 @@ def _port_run(settings, inputs, tmp, tag):
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipelined")
-    seq = SyntheticSequence(n_frames=N_FRAMES + 3, height=240, width=320, seed=3)
+    seq = _sequence()
     jseq = JSyntheticSequence(n_frames=N_FRAMES, height=240, width=320, seed=3)
     assert seq.settings.use_lines and seq.settings.use_loop_closing
-    inputs = [seq.frame(i) for i in range(N_FRAMES)]
-
-    ref = _RefPipelined(jseq.settings, pipeline_depth=K, **CAPS)
-    ref_rets = _drive(ref, inputs)
-    ref.save_trajectory_tum(tmp / "ref_traj.txt")
-    ref.save_map(tmp / "ref_map.npz")
+    inputs = _inputs(seq)
+    ref = _recorded(inputs, tmp / "ref_map.npz")
 
     got, got_rets = _port_run(seq.settings, inputs, tmp, "got")
     got.save_map(tmp / "got_map.npz")
     return dict(tmp=tmp, seq=seq, settings=seq.settings, inputs=inputs, more=[seq.frame(i) for i in range(N_FRAMES, N_FRAMES + 3)],
-                ref=ref, ref_rets=ref_rets, got=got, got_rets=got_rets, jsettings=jseq.settings)
+                ref=ref, got=got, got_rets=got_rets, jsettings=jseq.settings)
 
 
 def test_pipelined_run_matches_reference(run):

@@ -7,9 +7,16 @@ nonzero compaction, and both branches of the reference's lax.conds.
 Tolerances: the two front ends agree to float32 rounding (a descriptor bit
 on a near-tie may flip), so statuses and keyframe decisions must be equal,
 poses within 1e-3 m and the ATE within 1e-3 m; from one shared state and
-frame the step must agree to 1e-4."""
+frame the step must agree to 1e-4.
+
+The reference's run and its steps from the shared state are recorded:
+tests/data/slice_reference.npz, written by
+tests/data/make_slice_reference.py from these frames (the fixture checks
+their SHA-256 first; compiling the reference's step took ~75 s of every
+suite run). The reference's smaller functions run live."""
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -19,8 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import reference_runs
 from plslam_tpu.config import load_settings as jload_settings
-from plslam_tpu.features.frame import FrameBuilder as JFrameBuilder
 from plslam_tpu.pipeline.tracking import Tracker as JTracker
 from plslam_tpu.slammap import state as jstate
 from plslam_tpu_torch import convert, load_settings
@@ -45,30 +52,46 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def _sequence():
+    return SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=_half(load_settings(CFG)))
+
+
+def _no_last(d):
+    """No last-frame targets: the motion model fails."""
+    return d._replace(last=d.last._replace(valid=np.zeros_like(d.last.valid)))
+
+
+# the states _one_step starts both trackers from, made from the reference's
+# state before frame MID
+STEPS = {"shared": lambda d: d, "no_last": _no_last}
+
+
+@functools.cache
+def _ref_tracker():
+    """The reference's Tracker, for calls of its smaller functions."""
+    return JTracker(_half(jload_settings(CFG)), **CAPS)
+
+
 @pytest.fixture(scope="module")
 def run():
-    s, js = _half(load_settings(CFG)), _half(jload_settings(CFG))
-    seq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=s)
+    seq = _sequence()
+    s = seq.settings
     frames = [seq.frame(i) for i in range(N_FRAMES)]
 
-    jb, jt = JFrameBuilder(js), JTracker(js, **CAPS)
-    # the step makes `status` weakly typed; start it so, or jit compiles twice
-    jst = jt.init_state()._replace(status=jnp.asarray(tracking.ST_UNINIT))
-    ref, jframes, mid_state = [], [], None
-    for i, (g, d, _) in enumerate(frames):
-        jf = jb(jnp.asarray(g), jnp.asarray(d))
-        if i == MID:
-            mid_state = _np(jst)
-        jframes.append(_np(jf))
-        jst, out = jt.step(jst, jf)
-        ref.append(_np(out))
+    # the reference's run (tests/data/make_slice_reference.py): each step's
+    # output, the frames the tests read (frame 0's line fields only), its
+    # state before frame MID and after the last, and its steps from STEPS
+    z = reference_runs.load("slice", reference_runs.frames_sha256(frames))
+    ref = [reference_runs.tree(z, f"out{i}") for i in range(N_FRAMES)]
+    jframes = [reference_runs.tree(z, f"frame{i}") if i in z["frame_ids"] else None for i in range(N_FRAMES)]
+    mid_state, jst = reference_runs.tree(z, "mid_state"), reference_runs.tree(z, "state")
 
     b, t = FrameBuilder(s, device="cpu"), tracking.Tracker(s, device="cpu", **CAPS)
     st, got = t.init_state(), []
     for g, d, _ in frames:
         st, out = t.step(st, b(g, d))
         got.append(out)
-    return dict(seq=seq, ref=ref, got=got, jt=jt, jst=jst, t=t, st=st,
+    return dict(seq=seq, ref=ref, got=got, z=z, jst=jst, t=t, st=st,
                 jframes=jframes, mid_state=mid_state)
 
 
@@ -94,15 +117,15 @@ def test_poses_and_ate(run):
     assert ate_g < 0.02
 
 
-def _one_step(run, mutate=lambda d: d):
-    """Both trackers, one step from the same converted state and frame."""
-    d = mutate(run["mid_state"])
+def _one_step(run, name):
+    """Both trackers, one step from the same converted state and frame: the
+    state STEPS[name] makes of the reference's before frame MID (the
+    reference's step recorded, the port's live)."""
+    d = STEPS[name](run["mid_state"])
     jf = run["jframes"][MID]
-    jst = jax.tree_util.tree_map(jnp.asarray, d)
-    jst = jst._replace(status=jnp.asarray(int(d.status)))  # weakly typed, as the step leaves it
-    jst2, jout = run["jt"].step(jst, jax.tree_util.tree_map(jnp.asarray, jf))
+    jst2, jout = reference_runs.call(run["z"], f"step.{name}", dict(state=d, frame=jf))
     st2, out = run["t"].step(convert.track_state_from_numpy(d, "cpu"), convert.frame_from_numpy(jf, "cpu"))
-    return _np(jst2), _np(jout), st2, out
+    return jst2, jout, st2, out
 
 
 def _check_step(jst2, jout, st2, out):
@@ -116,16 +139,13 @@ def _check_step(jst2, jout, st2, out):
 
 
 def test_single_step_from_shared_state(run):
-    _check_step(*_one_step(run))
+    _check_step(*_one_step(run, "shared"))
 
 
 def test_ref_kf_fallback_branch(run):
     """No last-frame targets: the motion model fails and the reference-KF
     fallback (the reference's lax.cond at tracking.py:700) carries the step."""
-    def no_last(d):
-        return d._replace(last=d.last._replace(valid=np.zeros_like(d.last.valid)))
-
-    jst2, jout, st2, out = _one_step(run, no_last)
+    jst2, jout, st2, out = _one_step(run, "no_last")
     assert bool(jout.tracked)
     _check_step(jst2, jout, st2, out)
 
@@ -158,7 +178,7 @@ def test_local_set_and_covisibility_match_reference(run):
     m = convert.map_state_from_numpy(_np(jm), "cpu")
     np.testing.assert_array_equal(state.observation_matrix(m).numpy(), np.asarray(jstate.observation_matrix(jm)))
     np.testing.assert_array_equal(state.covisibility(m).numpy(), np.asarray(jstate.covisibility(jm)))
-    ref_local_set = jax.jit(run["jt"]._compute_local_set)
+    ref_local_set = jax.jit(_ref_tracker()._compute_local_set)
     for k in range(3):
         got = run["t"]._compute_local_set(m, torch.tensor(k, dtype=torch.int32))
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref_local_set(jm, jnp.int32(k))))
@@ -179,8 +199,8 @@ def test_solve_pose_matches_reference(run):
     previous pose."""
     jf, jm = run["jframes"][-1], _np(run["jst"].m)
     lm, T0 = _np(run["jst"].last.lm_idx), run["ref"][-2].Tcw
-    Tj, inl_j = run["jt"]._solve_pose(jax.tree_util.tree_map(jnp.asarray, jf), jnp.asarray(lm),
-                                      jnp.asarray(jm.pt_pos), jnp.asarray(T0))
+    Tj, inl_j = _ref_tracker()._solve_pose(jax.tree_util.tree_map(jnp.asarray, jf), jnp.asarray(lm),
+                                           jnp.asarray(jm.pt_pos), jnp.asarray(T0))
     Tt, inl_t = run["t"]._solve_pose(convert.frame_from_numpy(jf, "cpu"), torch.from_numpy(lm),
                                      torch.from_numpy(jm.pt_pos), torch.from_numpy(T0))
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)

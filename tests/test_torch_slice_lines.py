@@ -6,9 +6,17 @@ Tolerances: the front ends agree to float32 rounding, so statuses,
 keyframe flags and the number of map lines must be equal and poses agree
 within 1e-3 m; from one shared state and frame (with live map lines) the
 step agrees to 1e-4 in poses and line geometry, exactly in every flag,
-index and counter."""
+index and counter.
+
+The reference's run and its step from the shared state are recorded:
+tests/data/slice_lines_reference.npz, written by
+tests/data/make_slice_lines_reference.py from these frames (the fixture
+checks their SHA-256 first; compiling the reference's step took most of
+this file's time, beside tests/test_loop_e2e.py). The reference's
+smaller functions run live."""
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -18,8 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import reference_runs
 from plslam_tpu.config import load_settings as jload_settings
-from plslam_tpu.features.frame import FrameBuilder as JFrameBuilder
 from plslam_tpu.pipeline.tracking import Tracker as JTracker
 from plslam_tpu_torch import convert, load_settings
 from plslam_tpu_torch.features.frame import FrameBuilder
@@ -37,27 +45,30 @@ def _half(s):
     return dataclasses.replace(s, width=320, height=240, fx=s.fx / 2, fy=s.fy / 2, cx=s.cx / 2, cy=s.cy / 2)
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(np.array, tree)
+def _sequence():
+    return SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=_half(load_settings(CFG)))
+
+
+@functools.cache
+def _ref_tracker():
+    """The reference's Tracker, for calls of its smaller functions."""
+    return JTracker(_half(jload_settings(CFG)), **CAPS)
 
 
 @pytest.fixture(scope="module")
 def run():
-    s, js = _half(load_settings(CFG)), _half(jload_settings(CFG))
+    seq = _sequence()
+    s = seq.settings
     assert s.use_lines and s.line_backend == "device"
-    seq = SyntheticSequence(n_frames=N_FRAMES, seed=0, settings=s)
     frames = [seq.frame(i) for i in range(N_FRAMES)]
 
-    jb, jt = JFrameBuilder(js), JTracker(js, **CAPS)
-    jst = jt.init_state()._replace(status=jnp.asarray(tracking.ST_UNINIT))
-    ref, jframes, mid_state = [], [], None
-    for i, (g, d, _) in enumerate(frames):
-        jf = jb(jnp.asarray(g), jnp.asarray(d))
-        if i == MID:
-            mid_state = _np(jst)
-        jframes.append(_np(jf))
-        jst, out = jt.step(jst, jf)
-        ref.append(_np(out))
+    # the reference's run (tests/data/make_slice_lines_reference.py): each
+    # step's output, its frames (frame MID whole, the others their line
+    # fields), its state before frame MID and its step from there
+    z = reference_runs.load("slice_lines", reference_runs.frames_sha256(frames))
+    ref = [reference_runs.tree(z, f"out{i}") for i in range(N_FRAMES)]
+    jframes = [reference_runs.tree(z, f"frame{i}") for i in range(N_FRAMES)]
+    mid_state = reference_runs.tree(z, "mid_state")
 
     b, t = FrameBuilder(s, device="cpu"), tracking.Tracker(s, device="cpu", **CAPS)
     st, got, frames_t = t.init_state(), [], []
@@ -66,7 +77,7 @@ def run():
         st, out = t.step(st, f)
         got.append(out)
         frames_t.append(f)
-    return dict(s=s, ref=ref, got=got, jt=jt, jst=jst, t=t, st=st,
+    return dict(s=s, ref=ref, got=got, z=z, t=t, st=st,
                 jframes=jframes, frames=frames_t, mid_state=mid_state, inputs=frames)
 
 
@@ -106,10 +117,7 @@ def test_single_step_from_shared_state_with_live_lines(run):
     in this step that adds map lines and binds matched ones."""
     d, jf = run["mid_state"], run["jframes"][MID]
     assert int(d.m.n_ln) > 0 and d.m.kf_ln_valid.any()
-    jst = jax.tree_util.tree_map(jnp.asarray, d)
-    jst = jst._replace(status=jnp.asarray(int(d.status)))  # weakly typed, as the step leaves it
-    jst2, jout = run["jt"].step(jst, jax.tree_util.tree_map(jnp.asarray, jf))
-    jst2, jout = _np(jst2), _np(jout)
+    jst2, jout = reference_runs.call(run["z"], "step.shared", dict(state=d, frame=jf))
     st2, out = run["t"].step(convert.track_state_from_numpy(d, "cpu"), convert.frame_from_numpy(jf, "cpu"))
     assert bool(jout.new_kf) and int(jst2.m.n_ln) > int(d.m.n_ln)
     np.testing.assert_allclose(out.Tcw.numpy(), jout.Tcw, atol=1e-4)
@@ -127,7 +135,8 @@ def test_single_step_from_shared_state_with_live_lines(run):
 def test_project_lines_matches_reference(run):
     d = run["mid_state"]
     T = run["ref"][MID].Tcw
-    ref = [np.asarray(a) for a in run["jt"]._project_lines(jax.tree_util.tree_map(jnp.asarray, d.m), jnp.asarray(T))]
+    ref = [np.asarray(a) for a in _ref_tracker()._project_lines(jax.tree_util.tree_map(jnp.asarray, d.m),
+                                                                jnp.asarray(T))]
     got = [a.numpy() for a in run["t"]._project_lines(convert.map_state_from_numpy(d.m, "cpu"), torch.from_numpy(T))]
     np.testing.assert_array_equal(got[2], ref[2])
     vis = ref[2]

@@ -23,7 +23,12 @@ gives the same outcome, keyframe and landmark bindings, pose to 1e-4; the
 relocalizer's BoW database rows equal the reference's exactly; one
 keyframe step with
 `in_step_local_refresh=False` leaves the map and pose as the reference's
-step did (pose to 1e-4) and the working set unchanged."""
+step did (pose to 1e-4) and the working set unchanged.
+
+The reference's run is recorded: tests/data/system_reference.npz, written
+by tests/data/make_system_reference.py from these frames (the fixture
+checks their SHA-256 first; the live run, mostly XLA compile, took
+~110 s of every suite run)."""
 
 import dataclasses
 import json
@@ -32,11 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from plslam_tpu.io.synthetic import SyntheticSequence as JSyntheticSequence
-from plslam_tpu.system import System as JSystem
+import reference_runs
 from plslam_tpu_torch import convert
 from plslam_tpu_torch.io import viewer
 from plslam_tpu_torch.io.png import read_png
@@ -52,8 +53,8 @@ CAPS = dict(max_kf=32, max_pts=4096)
 INT_FIELDS = ("frame", "inliers", "matches", "kf_slot", "n_kf", "n_pt", "n_ln", "loops_closed", "gba_pending")
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
+def _sequence():
+    return SyntheticSequence(n_frames=STRIDE * N_BEFORE, height=240, width=320, seed=3, motion_scale=MOTION)
 
 
 def _inputs(seq):
@@ -80,31 +81,18 @@ def _drive(slam, inputs, snapshot=None):
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("system")
-    seq = SyntheticSequence(n_frames=STRIDE * N_BEFORE, height=240, width=320, seed=3, motion_scale=MOTION)
-    jseq = JSyntheticSequence(n_frames=STRIDE * N_BEFORE, height=240, width=320, seed=3, motion_scale=MOTION)
+    seq = _sequence()
     inputs = _inputs(seq)
     settings = dataclasses.replace(seq.settings, use_lines=False)
 
-    ref = JSystem(dataclasses.replace(jseq.settings, use_lines=False), use_local_mapping=False,
-                  use_loop_closing=False, log_path=tmp / "ref.jsonl", **CAPS)
-    snaps = {}
-
-    def snapshot(i):  # the reference's state and bookkeeping before call i
-        # the step leaves `status` weakly typed and a fresh or relocalized
-        # state has it strongly typed; one typing keeps the reference's
-        # fused step to one compile (the value is unchanged)
-        ref.state = ref.state._replace(status=jnp.asarray(int(ref.state.status)))
-        snaps[i] = dict(state=_np(ref.state), kf_bow=np.asarray(ref._reloc.kf_bow),
-                        timestamps=list(ref._timestamps), rel_poses=list(ref._rel_poses),
-                        ref_ids=list(ref._ref_ids), tracked=list(ref._tracked),
-                        kf_timestamps=dict(ref._kf_timestamps), last_status=ref._last_status,
-                        last_frame=None if ref._last_frame is None else _np(ref._last_frame[1]))
-
-    ref_rows = _drive(ref, inputs, snapshot)
-    snapshot(len(inputs))
-    ref.save_trajectory_tum(tmp / "ref_traj.txt")
-    ref.save_keyframe_trajectory_tum(tmp / "ref_kf.txt")
-    ref.shutdown()
+    # the reference's run (tests/data/make_system_reference.py): what the
+    # tests read per frame, its state and bookkeeping before the calls they
+    # start from, its JSONL log and its two TUM files
+    z = reference_runs.load("system", reference_runs.frames_sha256(inputs))
+    ref_rows = reference_runs.rows(z, "rows")
+    snaps = {int(i): reference_runs.system(z, f"snap{i}") for i in z["snap_calls"]}
+    for key, name in (("jsonl", "ref.jsonl"), ("traj", "ref_traj.txt"), ("kf", "ref_kf.txt")):
+        (tmp / name).write_bytes(z[key].tobytes())
 
     got = System(settings, use_local_mapping=False, use_loop_closing=False, log_path=tmp / "got.jsonl",
                  device="cpu", **CAPS)
